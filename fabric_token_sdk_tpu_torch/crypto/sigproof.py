@@ -1,0 +1,293 @@
+"""Proofs of knowledge of Pointcheval-Sanders signatures + set membership.
+
+Reference: `crypto/sigproof/pok.go` and `crypto/sigproof/membership.go`.
+A membership proof shows a Pedersen-committed value carries a valid PS
+signature from a public signed set (the range-proof digit check).
+
+Verification equation (pairing side), for obfuscated sig (R', S''):
+  com_GT = [ e(S''^c, Q) * e(R'^c, -PK_0) ]^{-1}
+           * e(R', sum_i PK_i^{z_m_i} + PK_h^{z_hash}) * e(P^{z_bf}, Q)
+matches the prover's commitment e(R', PK^rho) * e(P^rho_bf, Q).
+"""
+
+from __future__ import annotations
+
+from dataclasses import dataclass
+from typing import List, Optional, Sequence
+
+from . import hostmath as hm, pssign, schnorr
+from .serialization import guard, dumps, g1s_bytes, g2s_bytes, loads
+
+
+@dataclass
+class POK:
+    challenge: int
+    signature: pssign.Signature  # obfuscated
+    messages: List[int]  # responses
+    bf_resp: int  # response for the signature blinding factor
+    hash_resp: int  # response for the hash message
+
+    def to_dict(self) -> dict:
+        return {
+            "c": self.challenge,
+            "sr": self.signature.R,
+            "ss": self.signature.S,
+            "m": self.messages,
+            "b": self.bf_resp,
+            "h": self.hash_resp,
+        }
+
+    @classmethod
+    def from_dict(cls, d: dict) -> "POK":
+        return cls(d["c"], pssign.Signature(d["sr"], d["ss"]), d["m"], d["b"], d["h"])
+
+
+@dataclass
+class POKVerifier:
+    pk: List[tuple]  # G2, length l+2
+    Q: tuple  # G2
+    P: tuple  # G1 (obfuscation base, PedGen)
+
+    def _message_term(self, msg_resps: Sequence[int], hash_resp: int):
+        t = None
+        for i, z in enumerate(msg_resps):
+            t = hm.g2_add(t, hm.g2_mul(self.pk[i + 1], z))
+        return hm.g2_add(t, hm.g2_mul(self.pk[-1], hash_resp))
+
+    def recompute_commitment(self, p: POK):
+        """GT commitment reconstruction (reference pok.go:163-204)."""
+        if len(self.pk) != len(p.messages) + 2:
+            raise ValueError("POK: public key does not match proof size")
+        t = self._message_term(p.messages, p.hash_resp)
+        sc = hm.g1_mul(p.signature.S, p.challenge)
+        rc = hm.g1_mul(p.signature.R, p.challenge)
+        return hm.pairing_product(
+            [
+                (hm.g1_neg(sc), self.Q),  # e(S''^c, Q)^-1
+                (rc, self.pk[0]),  # e(R'^c, -PK0)^-1 = e(R'^c, PK0)... see below
+                (p.signature.R, t),
+                (hm.g1_mul(self.P, p.bf_resp), self.Q),
+            ]
+        )
+
+    def challenge_bytes(self, com_gt, sig: pssign.Signature, extra: bytes = b"") -> int:
+        raw = (
+            g2s_bytes(self.pk, [self.Q])
+            + g1s_bytes([self.P])
+            + hm.gt_to_bytes(com_gt)
+            + sig.transcript_bytes()
+            + extra
+        )
+        return hm.hash_to_zr(raw, b"fts/ps-pok")
+
+
+class POKProver(POKVerifier):
+    def __init__(self, pk, Q, P, witness_sig: pssign.Signature, messages: Sequence[int], rng=None):
+        super().__init__(pk=pk, Q=Q, P=P)
+        self.witness_sig = witness_sig
+        self.messages = list(messages)
+        self.rng = rng
+
+    def obfuscate(self):
+        """sigma' = sigma^r; sigma'' = (R', S' * P^bf)."""
+        rnd = pssign.SignVerifier(self.pk, self.Q).randomize(self.witness_sig, self.rng)
+        bf = hm.rand_zr(self.rng)
+        obf = pssign.Signature(rnd.R, hm.g1_add(rnd.S, hm.g1_mul(self.P, bf)))
+        return rnd, obf, bf
+
+    def commit(self, rnd_sig):
+        rho_m = [hm.rand_zr(self.rng) for _ in self.messages]
+        rho_h = hm.rand_zr(self.rng)
+        rho_bf = hm.rand_zr(self.rng)
+        t = self._message_term(rho_m, rho_h)
+        com_gt = hm.pairing_product(
+            [(rnd_sig.R, t), (hm.g1_mul(self.P, rho_bf), self.Q)]
+        )
+        return com_gt, rho_m, rho_h, rho_bf
+
+    def prove(self, extra: bytes = b"") -> POK:
+        rnd, obf, bf = self.obfuscate()
+        com_gt, rho_m, rho_h, rho_bf = self.commit(rnd)
+        chal = self.challenge_bytes(com_gt, obf, extra)
+        msg_hash = pssign.hash_messages(self.messages)
+        resp = schnorr.respond(
+            self.messages + [msg_hash, bf], rho_m + [rho_h, rho_bf], chal
+        )
+        return POK(
+            challenge=chal,
+            signature=obf,
+            messages=resp[: len(self.messages)],
+            hash_resp=resp[len(self.messages)],
+            bf_resp=resp[len(self.messages) + 1],
+        )
+
+
+def verify_pok(v: POKVerifier, p: POK, extra: bytes = b"") -> None:
+    com = v.recompute_commitment(p)
+    if v.challenge_bytes(com, p.signature, extra) != p.challenge:
+        raise ValueError("invalid proof of knowledge of PS signature")
+
+
+# ===================================================================
+# Membership proof: committed value is in the signed set
+# ===================================================================
+
+
+@dataclass
+class MembershipProof:
+    challenge: int
+    signature: pssign.Signature  # obfuscated PS signature on the value
+    value_resp: int
+    com_bf_resp: int
+    sig_bf_resp: int
+    hash_resp: int
+    commitment: tuple  # Pedersen commitment to the value
+
+    def to_bytes(self) -> bytes:
+        return dumps(
+            {
+                "c": self.challenge,
+                "sr": self.signature.R,
+                "ss": self.signature.S,
+                "v": self.value_resp,
+                "cb": self.com_bf_resp,
+                "sb": self.sig_bf_resp,
+                "h": self.hash_resp,
+                "com": self.commitment,
+            }
+        )
+
+    @classmethod
+    def from_bytes(cls, raw: bytes) -> "MembershipProof":
+        d = loads(raw)
+        return cls(
+            d["c"], pssign.Signature(d["sr"], d["ss"]), d["v"], d["cb"], d["sb"], d["h"], d["com"]
+        )
+
+
+@dataclass
+class MembershipWitness:
+    signature: pssign.Signature  # PS signature on value
+    value: int
+    com_bf: int  # blinding factor of the Pedersen commitment
+
+
+@dataclass
+class MembershipDraw:
+    """Commit-phase randomness of one membership proof. Drawn up front so
+    the host prover and the batched device prover (`crypto/batch_prove.py`)
+    share one response path (`membership_finish`): the device plane only
+    accelerates the group/pairing algebra of the commit phase.
+
+    `r`       — PS signature randomizer (sigma' = sigma^r)
+    `sig_bf`  — signature obfuscation blinding (S'' = S' + P^sig_bf)
+    `rho_v`   — randomness for the committed value
+    `rho_cb`  — randomness for the Pedersen commitment blinding
+    `rho_h`   — randomness for the PS hash message
+    `rho_bf`  — randomness for the signature blinding factor
+    """
+
+    r: int
+    sig_bf: int
+    rho_v: int
+    rho_cb: int
+    rho_h: int
+    rho_bf: int
+
+
+def membership_draw(rng=None) -> MembershipDraw:
+    return MembershipDraw(
+        r=hm.rand_zr(rng),
+        sig_bf=hm.rand_zr(rng),
+        rho_v=hm.rand_zr(rng),
+        rho_cb=hm.rand_zr(rng),
+        rho_h=hm.rand_zr(rng),
+        rho_bf=hm.rand_zr(rng),
+    )
+
+
+def membership_finish(
+    w: MembershipWitness, d: MembershipDraw, obf: pssign.Signature,
+    chal: int, commitment,
+) -> MembershipProof:
+    """Fiat-Shamir response phase (pure Zr arithmetic — always host)."""
+    msg_hash = pssign.hash_messages([w.value])
+    z = schnorr.respond(
+        [w.value, w.com_bf, msg_hash, d.sig_bf],
+        [d.rho_v, d.rho_cb, d.rho_h, d.rho_bf],
+        chal,
+    )
+    return MembershipProof(
+        challenge=chal,
+        signature=obf,
+        value_resp=z[0],
+        com_bf_resp=z[1],
+        hash_resp=z[2],
+        sig_bf_resp=z[3],
+        commitment=commitment,
+    )
+
+
+class MembershipVerifier:
+    """Checks a committed value is PS-signed (reference membership.go)."""
+
+    def __init__(self, commitment, P, Q, pk, ped_params):
+        self.commitment = commitment
+        self.pok = POKVerifier(pk=list(pk), Q=Q, P=P)
+        self.ped = list(ped_params)  # 2 bases: value, bf
+
+    def _challenge(self, com_gt, com_to_value_rand, sig) -> int:
+        raw = (
+            g1s_bytes(self.ped, [self.commitment, com_to_value_rand, self.pok.P])
+            + g2s_bytes(self.pok.pk, [self.pok.Q])
+            + hm.gt_to_bytes(com_gt)
+            + sig.transcript_bytes()
+        )
+        return hm.hash_to_zr(raw, b"fts/membership")
+
+    @guard
+    def verify(self, p: MembershipProof) -> None:
+        if p.commitment != self.commitment:
+            raise ValueError("membership proof commitment mismatch")
+        pok = POK(
+            challenge=p.challenge,
+            signature=p.signature,
+            messages=[p.value_resp],
+            bf_resp=p.sig_bf_resp,
+            hash_resp=p.hash_resp,
+        )
+        com_gt = self.pok.recompute_commitment(pok)
+        sp = schnorr.SchnorrProof(self.commitment, [p.value_resp, p.com_bf_resp], p.challenge)
+        com_val = schnorr.recompute_commitment(self.ped, sp)
+        if self._challenge(com_gt, com_val, p.signature) != p.challenge:
+            raise ValueError("invalid membership proof")
+
+
+class MembershipProver(MembershipVerifier):
+    def __init__(self, witness: MembershipWitness, commitment, P, Q, pk, ped_params, rng=None):
+        super().__init__(commitment, P, Q, pk, ped_params)
+        self.w = witness
+        self.rng = rng
+
+    def prove(self, d: Optional[MembershipDraw] = None) -> MembershipProof:
+        if d is None:
+            d = membership_draw(self.rng)
+        rnd, obf = self.obfuscate(d)
+        t = self.pok._message_term([d.rho_v], d.rho_h)
+        com_gt = hm.pairing_product(
+            [(rnd.R, t), (hm.g1_mul(self.pok.P, d.rho_bf), self.pok.Q)]
+        )
+        com_val = hm.g1_multiexp(self.ped, [d.rho_v, d.rho_cb])
+        chal = self._challenge(com_gt, com_val, obf)
+        return membership_finish(self.w, d, obf, chal, self.commitment)
+
+    def obfuscate(self, d: MembershipDraw):
+        """sigma' = sigma^r; sigma'' = (R', S' + P^sig_bf) — the host
+        version of the batched prover's variable-base scalar-mul stage."""
+        rnd = pssign.Signature(
+            hm.g1_mul(self.w.signature.R, d.r), hm.g1_mul(self.w.signature.S, d.r)
+        )
+        obf = pssign.Signature(
+            rnd.R, hm.g1_add(rnd.S, hm.g1_mul(self.pok.P, d.sig_bf))
+        )
+        return rnd, obf

@@ -1,0 +1,79 @@
+"""Native (C) host runtime helpers, built on demand, hashlib fallback.
+
+`sha256_many(messages)` — batch transcript hashing for Fiat-Shamir
+challenge recomputation over verified blocks, one native call a batch. The .so is compiled once
+with the system C compiler into this package directory; any failure falls
+back to pure-Python hashlib transparently.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import subprocess
+import threading
+from typing import List, Optional, Sequence
+
+_HERE = os.path.dirname(os.path.abspath(__file__))
+_SO = os.path.join(_HERE, "_fastser.so")
+_SRC = os.path.join(_HERE, "fastser.c")
+_lock = threading.Lock()
+_lib: Optional[ctypes.CDLL] = None
+_tried = False
+
+
+def _load() -> Optional[ctypes.CDLL]:
+    global _lib, _tried
+    with _lock:
+        if _lib is not None or _tried:
+            return _lib
+        _tried = True
+        try:
+            if not os.path.exists(_SO) or os.path.getmtime(_SO) < os.path.getmtime(_SRC):
+                for cc in ("cc", "gcc", "clang"):
+                    try:
+                        subprocess.run(
+                            [cc, "-O2", "-shared", "-fPIC", "-o", _SO, _SRC],
+                            check=True, capture_output=True, timeout=120,
+                        )
+                        break
+                    except Exception:
+                        continue
+                else:
+                    return None
+            lib = ctypes.CDLL(_SO)
+            lib.sha256_batch.argtypes = [
+                ctypes.c_char_p,
+                ctypes.POINTER(ctypes.c_uint64),
+                ctypes.c_uint64,
+                ctypes.c_char_p,
+            ]
+            lib.sha256_batch.restype = None
+            _lib = lib
+        except Exception:
+            _lib = None
+        return _lib
+
+
+def native_available() -> bool:
+    return _load() is not None
+
+
+def sha256_many(messages: Sequence[bytes]) -> List[bytes]:
+    """Batch SHA-256 in one native call; hashlib when the library does
+    not build."""
+    lib = _load()
+    if lib is None or not messages:
+        return [hashlib.sha256(m).digest() for m in messages]
+    buf = b"".join(messages)
+    n = len(messages)
+    offs = (ctypes.c_uint64 * (n + 1))()
+    pos = 0
+    for i, m in enumerate(messages):
+        offs[i] = pos
+        pos += len(m)
+    offs[n] = pos
+    out = ctypes.create_string_buffer(32 * n)
+    lib.sha256_batch(buf, offs, n, out)
+    return [out.raw[32 * i : 32 * (i + 1)] for i in range(n)]
