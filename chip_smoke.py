@@ -4,13 +4,24 @@
     python3 chip_smoke.py [--seed N]
 
 Builds the port's CUDA kernels from `fabric_token_sdk_tpu_torch/csrc`,
-holds each against its plain torch version on the card, then drives the
-port's main path: zkatdlog 1-in/1-out transfer-block verification
-through `BatchedTransferVerifier` on `cuda`, for a 64-transaction block
+holds each against its plain torch version on the card (edge cases
+included), then drives the port's main paths through
+`BatchedTransferVerifier` on `cuda`, each for a 64-transaction block
 (the orderer's default block size) and a 1,024-transaction backlog
-batch, with tampered and malformed rows planted in both. Verdicts must
-equal the port's host `TransferVerifier` on every row, and every kernel
-of the path must have been launched by that run.
+batch, with tampered and malformed rows planted:
+
+* zkatdlog 1-in/1-out transfers (no range proof: three G1 kernels);
+* 2-in/2-out transfers (the JAX bench's headline shape), whose range
+  proofs run all ten kernels: the G1 ones, G1 to-affine, the G2 ladder,
+  add and to-affine, the Miller loop, the GT product and the final
+  exponentiation. The batch is 16 copies of the block's 64 distinct
+  transactions (the port has no parse cache, so a copy costs what a
+  distinct row costs).
+
+Verdicts must equal the port's host `TransferVerifier` on every row, and
+every kernel of each path must have been launched by that path's run.
+The range kernels are then timed on the very inputs the verify gave
+them, at both sizes, and held against their plain versions there.
 
 Phases print one line each. Before the last line come the GPU's name
 and power limit as `nvidia-smi` reports them and one JSON object with
@@ -26,6 +37,7 @@ import argparse
 import json
 import os
 import random
+import statistics
 import subprocess
 import sys
 import time
@@ -55,10 +67,63 @@ FP_MULS_DOUBLE = 7
 FP_MULS_WINDOW_TABLE = 7 * FP_MULS_DOUBLE + 7 * FP_MULS_ADD
 POINT_BYTES = 3 * 8 * 4
 SCALAR_BYTES = 8 * 4
+# Over the tower, in base-field products: Karatsuba Fp2 product 3,
+# complex Fp2 squaring 2; G2 doubling (2M + 5S) 16 and addition
+# (11M + 5S) 43; Fp12 product 18 Fp2 products (Karatsuba over Fp6) 54,
+# Fp12 squaring 2 Fp6 products 36, cyclotomic squaring (Granger-Scott,
+# 9 Fp2 squarings) 18, sparse line product (13 Fp2 products) 39.
+G2_MULS_DOUBLE = 2 * 3 + 5 * 2
+G2_MULS_ADD = 11 * 3 + 5 * 2
+G2_MULS_WINDOW_TABLE = 7 * G2_MULS_DOUBLE + 7 * G2_MULS_ADD
+FP12_MUL = 18 * 3
+FP12_SQR = 12 * 3
+CYCLO_SQR = 9 * 2
+SPARSE_MUL = 13 * 3
+# An Fp inversion by Fermat with 4-bit windows: 252 squarings, 64
+# multiplies and a 14-product table. Montgomery's trick makes one
+# inversion serve a whole launch, at 3 products a row.
+INV_PRODUCTS = 252 + 64 + 14
+BATCH_INV_PER_ROW = 3
+# Miller loop a leg, projective lines: doubling step with line
+# (3M2 + 6S2 + 4 scalings by xp, yp) 25, mixed addition step with line
+# (11M2 + 2S2 + 4) 41; f^2 and a sparse product on each of the 64 bits
+# of 6u+2 below its top, an add step and a sparse product on its 36 set
+# bits and the two closing adds, Q1 and -Q2 by 4 Fp2 products.
+MILLER_DBL, MILLER_ADD = 3 * 3 + 6 * 2 + 4, 11 * 3 + 2 * 2 + 4
+# Final exponentiation a row: easy part 2 Fp12 products and a p^2
+# Frobenius (10), the Fp12 inverse by the batch trick (3 Fp12 products
+# a row); hard part (Fuentes-Castaneda et al.) 3 exponentiations by u
+# (62 cyclotomic squarings, 27 products each for u's 28 set bits), 12
+# Fp12 products, 4 cyclotomic squarings and 3 Frobenius maps (40).
+FEXP_PER_ROW = (2 * FP12_MUL + 10 + 3 * FP12_MUL
+                + 3 * (62 * CYCLO_SQR + 27 * FP12_MUL) + 12 * FP12_MUL + 4 * CYCLO_SQR + 40)
+FP12_INV = 3 * FP12_MUL + INV_PRODUCTS  # one a launch (batch trick)
+FP2_BYTES, FP12_BYTES = 2 * SCALAR_BYTES, 12 * SCALAR_BYTES
+G2_BYTES = 3 * FP2_BYTES
 
 BLOCK_TXS = 64  # orderer default max_block_txs
 BATCH_TXS = 1024  # backlog batch
 ROWS_PER_TX = 4  # 1-in/1-out WF: input, input sum, output, output sum
+RANGE_COPIES = BATCH_TXS // BLOCK_TXS  # the range batch: copies of the block
+VERIFY_REPS = {"1-in/1-out": (11, 5), "2-in/2-out": (7, 3)}  # block, batch
+RANGE_KERNELS = ("g1_to_affine", "g2_mul", "g2_add", "g2_to_affine", "miller",
+                 "gt_product", "final_exp")
+# launches of one 2-in/2-out verify, reckoned from crypto/batch.py: WF
+# (msm, mul, sub), membership (msm x2, mul x2, sub, and one of each range
+# kernel), equality (msm x2, mul x2, sub x2)
+RANGE_LAUNCHES = {"g1_msm": 5, "g1_mul": 5, "g1_addsub": 4, **{k: 1 for k in RANGE_KERNELS}}
+REPLACES = {
+    "g1_msm": "fabric_token_sdk_tpu/ops/stages.py:61",
+    "g1_mul": "fabric_token_sdk_tpu/ops/curve.py:122",
+    "g1_addsub": "fabric_token_sdk_tpu/ops/stages.py:83",
+    "g1_to_affine": "fabric_token_sdk_tpu/ops/stages.py:91",
+    "g2_mul": "fabric_token_sdk_tpu/ops/curve2.py:102",
+    "g2_add": "fabric_token_sdk_tpu/ops/curve2.py:59",
+    "g2_to_affine": "fabric_token_sdk_tpu/ops/stages.py:100",
+    "miller": "fabric_token_sdk_tpu/ops/pairing.py:180",
+    "gt_product": "fabric_token_sdk_tpu/ops/pairing.py:361",
+    "final_exp": "fabric_token_sdk_tpu/ops/pairing.py:250",
+}
 
 
 def fail(msg: str) -> None:
@@ -90,18 +155,29 @@ def msm_products(scalar_rows) -> int:
     return total
 
 
-def mul_products(points, scalars) -> int:
+def mul_products(points, scalars, table=FP_MULS_WINDOW_TABLE, dbl=FP_MULS_DOUBLE,
+                 add=FP_MULS_ADD) -> int:
     """Field products of [k]P a row by 4-bit fixed windows: the table
     (when k has more than one digit), 4 doublings a window below the top
-    one and an add per non-zero digit below the top one."""
+    one and an add per non-zero digit below the top one. `points` holds
+    None where a point is at infinity."""
     total = 0
     for p, k in zip(points, scalars):
         ds = nibbles(k)
         if p is None or len(ds) < 2:
             continue
-        total += FP_MULS_WINDOW_TABLE + 4 * (len(ds) - 1) * FP_MULS_DOUBLE
-        total += sum(1 for d in ds[:-1] if d) * FP_MULS_ADD
+        total += table + 4 * (len(ds) - 1) * dbl
+        total += sum(1 for d in ds[:-1] if d) * add
     return total
+
+
+def miller_products(legs: int) -> int:
+    from fabric_token_sdk_tpu_torch.ops import pairing as pr
+
+    nbits, nset = len(pr._ATE_BITS), int(pr._ATE_BITS.sum())
+    per_leg = (nbits * (FP12_SQR + MILLER_DBL + SPARSE_MUL) + nset * (MILLER_ADD + SPARSE_MUL)
+               + 4 * 3 + 2 * (MILLER_ADD + SPARSE_MUL))
+    return legs * per_leg
 
 
 def bound_ms(products: int, nbytes: int) -> tuple:
@@ -125,13 +201,15 @@ def main() -> int:
     from fabric_token_sdk_tpu_torch.crypto import hostmath as hm, token as tok
     from fabric_token_sdk_tpu_torch.crypto import transfer as tr, wellformedness as wfm
     from fabric_token_sdk_tpu_torch.crypto.batch import BatchedTransferVerifier
+    from fabric_token_sdk_tpu_torch.crypto.rangeproof import RangeProof
     from fabric_token_sdk_tpu_torch.crypto.setup import setup
-    from fabric_token_sdk_tpu_torch.ops import _build, curve as cv, field as fd
-    from fabric_token_sdk_tpu_torch.ops import limbs as lb, stages as st
+    from fabric_token_sdk_tpu_torch.ops import _build, curve as cv, curve2 as cv2, field as fd
+    from fabric_token_sdk_tpu_torch.ops import limbs as lb, pairing as pr, stages as st, tower as tw
     from fabric_token_sdk_tpu_torch.utils import metrics as mx
 
     dev = torch.device("cuda")
     rng = random.Random(args.seed)
+    kernels_by_name = {k.name: k for k in _build.PATH_KERNELS}
 
     # ---------------------------------------------------------------- device
     smi = subprocess.run(
@@ -148,12 +226,15 @@ def main() -> int:
     # ---------------------------------------------------------------- build
     t0 = time.perf_counter()
     _build.build_all()
+    t_build = time.perf_counter() - t0
     regs = []
     for src, log in sorted(_build.BUILD_LOG.items()):
-        regs += [f"{src}: {ln.split(':', 2)[-1].strip()}" for ln in log.splitlines()
-                 if "registers" in ln or "spill" in ln]
-    say("build", f"{len(_build.SOURCES)} sources with nvcc sm_90a in "
-        f"{time.perf_counter() - t0:.1f} s; " + " | ".join(regs))
+        lines = log.splitlines()
+        for i, ln in enumerate(lines):
+            if "Compiling entry function" in ln:  # the kernel's own properties follow
+                regs.append(f"{src}: " + " ".join(x.split(":", 1)[-1].strip() for x in lines[i + 2:i + 4]))
+    say("build", f"{len(_build.SOURCES)} sources with nvcc sm_90a in {t_build:.1f} s; "
+        + " | ".join(regs))
 
     def timed(fn, reps: int) -> float:
         """Mean ms per call over `reps` calls, after a warm-up call."""
@@ -195,21 +276,24 @@ def main() -> int:
 
     # ---------------------------------------------------------------- kernels
     pool = [hm.g1_mul(hm.G1_GEN, rng.randrange(1, hm.R)) for _ in range(64)]
+    pool2 = [hm.g2_mul(hm.G2_GEN, rng.randrange(1, hm.R)) for _ in range(16)]
     tables = {nb: cv.FixedBaseTable(pool[:nb]).to(dev) for nb in (1, 2, 3)}
 
-    def rand_points(n, edges):
-        pts = [rng.choice(pool) for _ in range(n)]
+    def rand_points(n, edges, src=pool):
+        pts = [rng.choice(src) for _ in range(n)]
         pts[: len(edges)] = edges
         return pts
 
     def redundant(words: torch.Tensor, rows) -> torch.Tensor:
-        """Lift the coordinates of some rows from [0, p) into [p, 2p)."""
-        out = words.clone()
+        """Lift every 8-word value of some rows from [0, p) into [p, 2p)."""
+        out = words.clone().cpu()
+        flat = out.view(out.shape[0], -1, lb.NWORDS)
         for r in rows:
-            for c in range(3):
-                v = lb.words_to_int(out[r, c].numpy()) + P
-                out[r, c] = torch.from_numpy(lb.int_to_words(v))
-        return out
+            for c in range(flat.shape[1]):
+                v = lb.words_to_int(flat[r, c].numpy())
+                if v < P:
+                    flat[r, c] = torch.from_numpy(lb.int_to_words(v + P))
+        return out.to(words.device)
 
     stats = {}  # kernel -> numbers at the path's shapes
     for rows in (BLOCK_TXS * ROWS_PER_TX, BATCH_TXS * ROWS_PER_TX):
@@ -261,6 +345,60 @@ def main() -> int:
             f"equal their plain versions exactly; ms/launch " + ", ".join(
                 f"{k} {v[rows][0]:.4f}" for k, v in stats.items()) + f" [{card}]")
 
+    # ---------------------------------------------------------------- edges
+    # the range path's kernels against their plain versions at a small
+    # row count, on the edges: infinity operands, P+P and P-P, scalars 0,
+    # 1 and r-1, a (0, 0) Miller leg, a masked leg, values in [p, 2p)
+    def check(name, got, want):
+        if not torch.equal(got, want):
+            fail(f"{name} disagrees with its plain version on the edge rows "
+                 f"(max |err| {max_abs_err(got, want)})")
+
+    n = 32
+    g1j = st.g1_add_rows(*(torch.from_numpy(cv.encode_points(rand_points(n, []))).to(dev),) * 2)
+    g1j[:2] = torch.from_numpy(cv.encode_points([None, None])).to(dev)  # infinity rows
+    g1j = redundant(g1j, range(2, 8))
+    check("g1_to_affine", st.g1_to_affine_rows(g1j), st.g1_to_affine_plain(g1j))
+    q0, q1 = pool2[0], pool2[1]
+    g2p = redundant(torch.from_numpy(cv2.encode_points(rand_points(n, [q0, q1, q0, None], pool2))).to(dev),
+                    range(4, 9))
+    ks = [0, 1, hm.R - 1, 5] + [rng.randrange(hm.R) for _ in range(n - 4)]
+    g2k = torch.from_numpy(cv.encode_scalars(ks)).to(dev)
+    g2m = st.g2_mul_rows(g2p, g2k)
+    check("g2_mul", g2m, st.g2_mul_plain(g2p, g2k))
+    A = rand_points(n, [q0, q0, None, q1, None, q1], pool2)
+    B = [q0, hm.g2_neg(q0), q1, None, None, hm.g2_neg(q1)]
+    ga = redundant(torch.from_numpy(cv2.encode_points(A)).to(dev), range(6, 10))
+    gb = redundant(g2m, range(10, 14))
+    gb[: len(B)] = torch.from_numpy(cv2.encode_points(B)).to(dev)
+    g2s = st.g2_add_rows(ga, gb)
+    check("g2_add", g2s, st.g2_add_plain(ga, gb))
+    g2s = redundant(g2s, range(6, 10))
+    check("g2_to_affine", st.g2_to_affine_rows(g2s), st.g2_to_affine_plain(g2s))
+    legs = 2 * n
+    mP = torch.from_numpy(pr.encode_g1([None] + rand_points(legs - 1, []))).to(dev)  # leg 0: (0, 0)
+    mP = redundant(mP, range(1, 5))
+    mQ = redundant(torch.from_numpy(pr.encode_g2(rand_points(legs, [], pool2))).to(dev), range(3, 7))
+    mf = st.miller_rows(mP, mQ)
+    check("miller", mf, st.miller_plain(mP, mQ))
+    ff = mf.reshape(legs // 4, 4, 6, 2, lb.NWORDS).clone()
+    ff[0, 1] = torch.from_numpy(tw.fp12_one_np()).to(dev)  # a masked leg's GT one
+    ff = redundant(ff.reshape(legs // 4, -1, lb.NWORDS), range(1, 3)).reshape(ff.shape).contiguous()
+    gp = st.gt_product_rows(ff)
+    check("gt_product", gp, st.gt_product_plain(ff))
+    gp[0] = ff[0, 1]  # a row that is GT one
+    check("final_exp", st.final_exp_rows(gp), st.final_exp_plain(gp))
+    mask = torch.zeros((8, 4), dtype=torch.bool)
+    mask[0, 0] = mask[3, 2] = True
+    Ps, Qs = mP[:32].reshape(8, 4, 2, lb.NWORDS), mQ[:32].reshape(8, 4, 2, 2, lb.NWORDS)
+    staged = pr.pairing_product_staged(Ps, Qs, inf_mask=mask.numpy())
+    check("pairing_product_staged (masked legs)", staged,
+          pr.pairing_product_staged(Ps.cpu(), Qs.cpu(), inf_mask=mask.numpy()).to(dev))
+    say("edges", f"g1_to_affine, g2_mul, g2_add, g2_to_affine ({n} rows), miller ({legs} legs), "
+        f"gt_product, final_exp and a masked pairing product equal their plain versions "
+        f"exactly on infinity operands, P+P, P-P, scalars 0/1/r-1, a (0, 0) leg, GT one and "
+        f"values in [p, 2p)")
+
     # ---------------------------------------------------------------- slice
     t0 = time.perf_counter()
     pp = setup(base=16, exponent=2, rng=rng)
@@ -311,7 +449,7 @@ def main() -> int:
     t = time.perf_counter()
     got_batch = verifier.verify(batch)
     t_batch = time.perf_counter() - t
-    launches = {k.name: k.launches for k in _build.PATH_KERNELS}
+    launches = {k.name: k.launches for k in _build.WF_KERNELS}
 
     if got_block.tolist() != host_block or got_batch.tolist() != host_batch:
         fail("BatchedTransferVerifier on cuda disagrees with the host TransferVerifier")
@@ -323,81 +461,273 @@ def main() -> int:
         f"{t_batch * 1e3:.1f} ms; planted rows rejected, verdicts equal the host verifier's "
         f"on all {BLOCK_TXS + BATCH_TXS} rows; launches {launches} [{card}]")
 
-    # steady state: repeated verifies, median and spread
-    for txs, reps in ((block, 11), (batch, 5)):
-        walls = []
-        for _ in range(reps):
+    def medians(tag, cases):
+        """Repeated verifies on the warm verifier: median and spread."""
+        out = {}
+        for txs, reps in cases:
+            walls = []
+            for _ in range(reps):
+                t = time.perf_counter()
+                verifier.verify(txs)
+                walls.append(time.perf_counter() - t)
+            walls.sort()
+            med = statistics.median(walls)
+            out[len(txs)] = med
+            say("throughput", f"{tag} {len(txs)}-tx verify over {reps} runs: median "
+                f"{med * 1e3:.1f} ms ({len(txs) / med:.1f} tx/s), min {walls[0] * 1e3:.1f} ms, "
+                f"max {walls[-1] * 1e3:.1f} ms [{card}]")
+        return out
+
+    medians("1-in/1-out", zip((block, batch), VERIFY_REPS["1-in/1-out"]))
+
+    def breakdown(tag, txs, kernels, span_names):
+        """One verify with spans on and CUDA events around each launch of
+        `kernels`; returns the launch names of that verify."""
+        events = []
+
+        def with_events(kernel):
+            launch = kernel.launch
+
+            def timed_launch(device, *args):
+                ev = (torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True))
+                ev[0].record()
+                launch(device, *args)
+                ev[1].record()
+                events.append((kernel.name, ev))
+            return timed_launch
+
+        mx.enable(True)
+        mx.REGISTRY.reset()
+        for k in kernels:
+            k.launch = with_events(k)
+        try:
             t = time.perf_counter()
             verifier.verify(txs)
-            walls.append(time.perf_counter() - t)
-        walls.sort()
-        med = walls[len(walls) // 2]
-        say("throughput", f"{len(txs)}-tx verify over {reps} runs: median {med * 1e3:.1f} ms "
-            f"({len(txs) / med:.1f} tx/s), min {walls[0] * 1e3:.1f} ms, max "
-            f"{walls[-1] * 1e3:.1f} ms [{card}]")
+            t_prof = time.perf_counter() - t
+        finally:
+            for k in kernels:
+                del k.launch
+            mx.enable(False)
+        spans = mx.REGISTRY.span_summary()
+        torch.cuda.synchronize()
+        kernel_ms = {}
+        for name, (start, end) in events:
+            kernel_ms[name] = kernel_ms.get(name, 0.0) + start.elapsed_time(end)
+        busy_ms = sum(kernel_ms.values())
+        say("breakdown", f"{tag} {len(txs)}-tx verify {t_prof * 1e3:.1f} ms: " + ", ".join(
+            f"{name.split('.', 1)[-1]} {spans[name]['total_s'] * 1e3:.1f} ms"
+            for name in span_names if name in spans) + "; kernels in this verify by CUDA "
+            "events " + ", ".join(f"{name} {ms:.3f} ms" for name, ms in kernel_ms.items())
+            + f", {busy_ms:.1f} ms in all ({len(events)} launches): no kernel running for "
+            f"{100 * (1 - busy_ms / (t_prof * 1e3)):.1f}% of the verify [{card}]")
+        return [name for name, _ in events]
 
-    # where the time of one batch verify goes: the verifier's own spans,
-    # and CUDA events recorded around each kernel launch of this verify
-    launch_events = []
+    wf_spans = ("batch.transfer.verify", "batch.wf.parse", "batch.wf.encode",
+                "batch.wf.device", "batch.wf.decode", "batch.wf.challenge")
+    names = breakdown("1-in/1-out", batch, _build.WF_KERNELS, wf_spans)
+    if sorted(names) != sorted(k.name for k in _build.WF_KERNELS):
+        fail(f"profiled 1-in/1-out verify launched {names}")
 
-    def with_events(kernel):
-        launch = kernel.launch
+    # ---------------------------------------------------------------- range slice
+    t0 = time.perf_counter()
+    rblock = []
+    for _ in range(BLOCK_TXS):
+        vals = [rng.randrange(1, 1 << 7) for _ in range(2)]
+        ins, inw = tok.tokens_with_witness(vals, "USD", pp.ped_params, rng)
+        split = rng.randrange(0, sum(vals) + 1)
+        outs, outw = tok.tokens_with_witness([split, sum(vals) - split], "USD", pp.ped_params, rng)
+        rblock.append((ins, outs, tr.TransferProver(inw, outw, ins, outs, pp, rng).prove()))
+    t_rprove = time.perf_counter() - t0
 
-        def timed_launch(device, *args):
-            ev = (torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True))
-            ev[0].record()
-            launch(device, *args)
-            ev[1].record()
-            launch_events.append((kernel.name, ev))
-        return timed_launch
+    def edit_range(raw, edit):
+        p = tr.TransferProof.from_bytes(raw)
+        r = RangeProof.from_bytes(p.range_correctness)
+        edit(r)
+        return tr.TransferProof(p.wf, r.to_bytes()).to_bytes()
 
-    mx.enable(True)
-    mx.REGISTRY.reset()
-    for k in _build.PATH_KERNELS:
-        k.launch = with_events(k)
-    try:
-        t = time.perf_counter()
-        verifier.verify(batch)
-        t_prof = time.perf_counter() - t
-    finally:
+    def bump_value(r):
+        r.membership_proofs[0][1].value_resp = (r.membership_proofs[0][1].value_resp + 1) % hm.R
+
+    def swap_digits(r):
+        r.digit_commitments[1][0], r.digit_commitments[1][1] = (
+            r.digit_commitments[1][1], r.digit_commitments[1][0])
+
+    def bump_challenge(r):
+        r.challenge = (r.challenge + 1) % hm.R
+
+    plants = {
+        "membership value_resp bumped": lambda raw: edit_range(raw, bump_value),
+        "digit commitments swapped": lambda raw: edit_range(raw, swap_digits),
+        "range challenge bumped": lambda raw: edit_range(raw, bump_challenge),
+        "range bytes truncated": lambda raw: tr.TransferProof(
+            tr.TransferProof.from_bytes(raw).wf,
+            tr.TransferProof.from_bytes(raw).range_correctness[:-7]).to_bytes(),
+        "range proof missing": lambda raw: tr.TransferProof(
+            tr.TransferProof.from_bytes(raw).wf, None).to_bytes(),
+    }
+    bad_rows = []
+    for j, plant in enumerate(plants.values()):
+        i = 1 + j * max(1, BLOCK_TXS // len(plants) - 1)
+        rblock[i] = (rblock[i][0], rblock[i][1], plant(rblock[i][2]))
+        bad_rows.append(i)
+    rbatch = rblock * RANGE_COPIES
+    t = time.perf_counter()
+    host_r = host_verdicts(rblock)
+    t_rhost = time.perf_counter() - t
+    if [i for i in range(BLOCK_TXS) if not host_r[i]] != bad_rows:
+        fail("host verifier does not reject exactly the planted range rows")
+
+    # record what the verify hands each range kernel (first call a verify)
+    captured = {}
+    originals = {name: getattr(st, f"{name}_rows") for name in RANGE_KERNELS}
+
+    def capturing(name):
+        fn = originals[name]
+
+        def wrapper(*a):
+            captured.setdefault(name, tuple(x.clone() for x in a))
+            return fn(*a)
+        return wrapper
+
+    def verify_counted(txs):
+        """One verify with every count set to 0 just before it and read
+        just after, recording each range kernel's inputs."""
+        captured.clear()
+        for name in RANGE_KERNELS:
+            setattr(st, f"{name}_rows", capturing(name))
         for k in _build.PATH_KERNELS:
-            del k.launch
-        mx.enable(False)
-    spans = mx.REGISTRY.span_summary()
-    torch.cuda.synchronize()
-    if sorted(name for name, _ in launch_events) != sorted(k.name for k in _build.PATH_KERNELS):
-        fail(f"profiled verify launched {[name for name, _ in launch_events]}")
-    kernel_ms = {name: start.elapsed_time(end) for name, (start, end) in launch_events}
-    busy_ms = sum(kernel_ms.values())
-    say("breakdown", f"{BATCH_TXS}-tx verify {t_prof * 1e3:.1f} ms: " + ", ".join(
-        f"{name.split('.', 1)[-1]} {spans[name]['total_s'] * 1e3:.1f} ms"
-        for name in ("batch.transfer.verify", "batch.wf.parse", "batch.wf.encode",
-                     "batch.wf.device", "batch.wf.decode", "batch.wf.challenge")
-        if name in spans) + "; kernels in this verify by CUDA events " + ", ".join(
-        f"{name} {ms:.3f} ms" for name, ms in kernel_ms.items()) + f", {busy_ms:.1f} ms "
-        f"in all: no kernel running for {100 * (1 - busy_ms / (t_prof * 1e3)):.1f}% of "
-        f"the verify [{card}]")
+            k.launches = 0
+        try:
+            t = time.perf_counter()
+            got = verifier.verify(txs)
+            wall = time.perf_counter() - t
+        finally:
+            for name, fn in originals.items():
+                setattr(st, f"{name}_rows", fn)
+        counts = {k.name: k.launches for k in _build.PATH_KERNELS}
+        if counts != RANGE_LAUNCHES:
+            fail(f"a {len(txs)}-tx 2-in/2-out verify launched {counts}, expected {RANGE_LAUNCHES}")
+        return got, wall, counts, dict(captured)
+
+    got_rblock, t_rblock, launches_r, inputs_block = verify_counted(rblock)
+    got_rbatch, t_rbatch, launches_rb, inputs_batch = verify_counted(rbatch)
+    if got_rblock.tolist() != host_r:
+        fail(f"2-in/2-out block verdicts {got_rblock.tolist()} differ from the host verifier's")
+    if got_rbatch.tolist() != host_r * RANGE_COPIES:
+        fail("2-in/2-out batch verdicts differ from their source rows' host verdicts")
+    say("range", f"proved {BLOCK_TXS} distinct 2-in/2-out transfers in {t_rprove:.1f} s, host "
+        f"verify {t_rhost:.1f} s; planted rows {bad_rows} ({', '.join(plants)}) rejected; "
+        f"first verify: {BLOCK_TXS}-tx block {t_rblock * 1e3:.1f} ms, {len(rbatch)}-tx batch "
+        f"({RANGE_COPIES} copies) {t_rbatch * 1e3:.1f} ms; verdicts equal the host's on every "
+        f"row; launches a verify {launches_r} [{card}]")
+
+    # ---------------------------------------------------------------- range kernels
+    # each range kernel on the very inputs the verify gave it: held against
+    # its plain version at the block's shapes, timed at both sizes
+    def finite(points):
+        """1 for a row whose Z is not 0, None at infinity (G1 or G2)."""
+        return [1 if bool(z.any()) else None for z in points[:, 2].cpu()]
+
+    def repeats(name, big, got) -> bool:
+        """The batch is RANGE_COPIES copies of the block, so a kernel's
+        output at the batch's rows repeats its block output (g1_to_affine
+        takes three stacked parts, each repeated)."""
+        parts = 3 if name == "g1_to_affine" else 1
+        shape = tuple(got.shape[1:])
+        b = big.reshape((parts, RANGE_COPIES, -1) + shape)
+        g = got.reshape((parts, 1, -1) + shape)
+        return b.shape[2] == g.shape[2] and torch.equal(b, g.expand_as(b))
+
+    def bound_of(name, a):
+        rows = a[0].shape[0]
+        if name == "g1_to_affine":
+            fin = sum(1 for x in finite(a[0]) if x)
+            # batch trick, then Z^-2, X Z^-2, Y Z^-2, times Z^-1
+            prods = (BATCH_INV_PER_ROW + 4) * fin + (INV_PRODUCTS if fin else 0)
+            return bound_ms(prods, rows * (POINT_BYTES + 2 * SCALAR_BYTES))
+        if name == "g2_mul":
+            ks = lb.batch_words_to_ints(a[1])
+            prods = mul_products(finite(a[0]), ks, G2_MULS_WINDOW_TABLE, G2_MULS_DOUBLE, G2_MULS_ADD)
+            return bound_ms(prods, rows * (2 * G2_BYTES + SCALAR_BYTES))
+        if name == "g2_add":
+            fin = sum(1 for x, y in zip(finite(a[0]), finite(a[1])) if x and y)
+            return bound_ms(fin * G2_MULS_ADD, rows * 3 * G2_BYTES)
+        if name == "g2_to_affine":
+            fin = sum(1 for x in finite(a[0]) if x)
+            # batch trick over Fp2 (9 a row), one Fp2 inverse, then
+            # Z^-2 (2), X Z^-2 (3), Y Z^-1 (3), times Z^-2 (3)
+            prods = 20 * fin + (INV_PRODUCTS + 4 if fin else 0)
+            return bound_ms(prods, rows * (G2_BYTES + 2 * FP2_BYTES))
+        if name == "miller":
+            return bound_ms(miller_products(rows), rows * (2 * SCALAR_BYTES + 2 * FP2_BYTES + FP12_BYTES))
+        if name == "gt_product":
+            k = a[0].shape[1]
+            return bound_ms(rows * (k - 1) * FP12_MUL, rows * (k + 1) * FP12_BYTES)
+        return bound_ms(rows * FEXP_PER_ROW + FP12_INV, rows * 2 * FP12_BYTES)  # final_exp
+
+    range_stats = {}
+    for name in RANGE_KERNELS:
+        fn, plain = originals[name], getattr(st, f"{name}_plain")
+        ab, abig = inputs_block[name], inputs_batch[name]
+        got = fn(*ab)
+        want, p_ms = plain_timed(lambda: plain(*ab))
+        if not torch.equal(got, want):
+            fail(f"{name} disagrees with its plain version on the verify's inputs "
+                 f"(max |err| {max_abs_err(got, want)})")
+        big = fn(*abig)
+        reps = 3 if name in ("miller", "final_exp", "g2_mul") else 20
+        range_stats[name] = {
+            "rows_block": ab[0].shape[0], "rows_batch": abig[0].shape[0],
+            "ms_block": timed(lambda: fn(*ab), reps), "ms_batch": timed(lambda: fn(*abig), reps),
+            "plain_ms": p_ms, "max_abs_err": max_abs_err(got, want),
+            "bound_block": bound_of(name, ab), "bound_batch": bound_of(name, abig),
+        }
+        if not repeats(name, big, got):
+            fail(f"{name} at the batch's rows does not repeat its block output")
+    say("range-kernels", "ms at block/batch rows: " + ", ".join(
+        f"{k} {v['rows_block']}/{v['rows_batch']} rows {v['ms_block']:.3f}/{v['ms_batch']:.3f} ms "
+        f"(bound {v['bound_block'][0]:.4f}/{v['bound_batch'][0]:.4f}, plain {v['plain_ms']:.0f})"
+        for k, v in range_stats.items()) + f"; each equals its plain version exactly on the "
+        f"block verify's inputs and repeats that output on the batch's [{card}]")
+
+    range_medians = medians("2-in/2-out", zip((rblock, rbatch), VERIFY_REPS["2-in/2-out"]))
+    range_spans = wf_spans + ("batch.membership.verify", "batch.range.parse", "batch.range.device",
+                              "batch.range.decode", "batch.range.challenge")
+    names = breakdown("2-in/2-out", rbatch, _build.PATH_KERNELS, range_spans)
+    want_names = sorted(n for n, c in RANGE_LAUNCHES.items() for _ in range(c))
+    if sorted(names) != want_names:
+        fail(f"profiled 2-in/2-out verify launched {sorted(names)}")
 
     # ---------------------------------------------------------------- report
-    replaces = {
-        "g1_msm": "fabric_token_sdk_tpu/ops/stages.py:61",
-        "g1_mul": "fabric_token_sdk_tpu/ops/curve.py:122",
-        "g1_addsub": "fabric_token_sdk_tpu/ops/stages.py:83",
-    }
     kernels = []
     big, small = BATCH_TXS * ROWS_PER_TX, BLOCK_TXS * ROWS_PER_TX
-    for k in _build.PATH_KERNELS:
+    for k in _build.WF_KERNELS:
         ms, p_ms, err, (b_ms, b_by) = stats[k.name][big]
         kernels.append({
             "name": k.name, "route": "cuda",
             "source": f"fabric_token_sdk_tpu_torch/csrc/{k.source}",
-            "replaces": replaces[k.name], "launches": launches[k.name],
+            "replaces": REPLACES[k.name], "launches": launches[k.name],
+            "launches_2in2out_verify": launches_r[k.name],
             "max_abs_err": err, "ms": ms, "plain_ms": p_ms,
             "bound_ms": b_ms, "bound_by": b_by, "library_ms": None,
             "rows": big, "ms_at_256_rows": stats[k.name][small][0],
             "plain_ms_at_256_rows": stats[k.name][small][1],
             "bound_ms_at_256_rows": stats[k.name][small][3][0],
         })
+    for name in RANGE_KERNELS:
+        v, k = range_stats[name], kernels_by_name[name]
+        kernels.append({
+            "name": name, "route": "cuda",
+            "source": f"fabric_token_sdk_tpu_torch/csrc/{k.source}",
+            "replaces": REPLACES[name], "launches": launches_r[name],
+            "launches_batch_verify": launches_rb[name],
+            "max_abs_err": v["max_abs_err"], "ms": v["ms_batch"], "plain_ms": v["plain_ms"],
+            "bound_ms": v["bound_batch"][0], "bound_by": v["bound_batch"][1], "library_ms": None,
+            "rows": v["rows_batch"], "ms_block": v["ms_block"], "rows_block": v["rows_block"],
+            "bound_ms_block": v["bound_block"][0], "plain_rows": v["rows_block"],
+        })
+    print(json.dumps({"range_verify_median_ms": {str(k): v * 1e3 for k, v in range_medians.items()},
+                      "build_s": t_build}), flush=True)
     print(card, flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -5,8 +5,8 @@ It imports torch and numpy, never jax and nothing of the JAX package:
 host-only modules are carried over as copies.
 
 Layers (mirroring the JAX package):
-  ops/     256-bit words, BN254 Fp, G1, row stages; CUDA wrappers and
-           their plain torch versions
+  ops/     256-bit words, BN254 Fp and its tower, G1, G2, the pairing,
+           row stages; CUDA wrappers and their plain torch versions
   csrc/    hand-written CUDA kernels for sm_90a (H100)
   crypto/  ZK protocol layer (host copies) and the batched verifiers
   native/  C host library (BN254 host math, batch SHA-256), built with cc

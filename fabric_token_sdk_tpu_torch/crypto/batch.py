@@ -6,12 +6,15 @@ launch over all flat rows: host code parses proofs and lays out scalars
 and statements, the card recomputes every Schnorr commitment, and host
 code re-derives the Fiat-Shamir challenges.
 
-This slice ports the 1-in/1-out transfer (the reference's ownership
-transfer, which carries no range proof, `transfer.go:55-59`): its
-verification is the well-formedness proof alone, three kernels in all
-(`g1_msm`, `g1_mul`, `g1_addsub`). Other shapes need the range-proof
-path (G2, the pairing) and raise `NotImplementedError` naming the
-ROADMAP item; they are never verified silently on the host.
+Every uniform transfer shape verifies. A 1-in/1-out transfer (the
+reference's ownership transfer, `transfer.go:55-59`) carries no range
+proof: its verification is the well-formedness proof alone, three
+kernels (`g1_msm`, `g1_mul`, `g1_addsub`). Any other shape carries a
+range proof over its outputs: membership proofs, one a digit, verified
+as 4-leg pairing products (`BatchedMembershipVerifier`: G2 ladder, G2
+add and to-affine, G1 to-affine, Miller loop, GT product, final
+exponentiation), and the equality sigma proof on the G1 kernels. A
+block of mixed shapes raises `NotImplementedError`.
 """
 
 from __future__ import annotations
@@ -22,17 +25,13 @@ from typing import List, Optional, Sequence, Tuple
 import numpy as np
 import torch
 
-from . import hostmath as hm
+from . import hostmath as hm, sigproof
+from .rangeproof import RangeProof, RangeVerifier
 from .setup import PublicParams
 from .transfer import TransferProof
 from .wellformedness import TransferWF, challenge_transfer_wf
-from ..ops import curve as cv, limbs as lb, stages as st
+from ..ops import curve as cv, curve2 as cv2, limbs as lb, pairing as pr, stages as st, tower as tw
 from ..utils import metrics as mx
-
-RANGE_PATH_ITEM = (
-    "ROADMAP.md A4/B7-B13: the range-proof path (G2, pairing) of the "
-    "PyTorch port is not ported yet; only 1-in/1-out transfers verify"
-)
 
 
 def resolve_device(device=None) -> torch.device:
@@ -152,33 +151,128 @@ class BatchedWFVerifier:
         return proofs, stmts, resp, chals
 
 
+def _upload(arr: np.ndarray, dev: torch.device) -> torch.Tensor:
+    return torch.from_numpy(np.ascontiguousarray(arr)).to(dev)
+
+
+class BatchedMembershipVerifier:
+    """Verifies B membership proofs (the per-digit unit of range proofs).
+
+    Device: the GT commitment as 4-leg pairing products and the G1
+    commitment as fixed- and variable-base multiexps, one launch per
+    stage over all B proofs. Host: the per-proof Fiat-Shamir challenge.
+    """
+
+    def __init__(self, pp: PublicParams, device=None):
+        self.pp = pp
+        self.device = resolve_device(device)
+        rp = pp.range_params
+        self.pk = rp.sign_pk
+        self.Q = rp.Q
+        self.P = pp.ped_gen
+        self.ped2 = pp.ped_params[:2]
+        dev = self.device
+        self.pk12 = _upload(cv2.encode_points(self.pk[1:3]), dev)  # (2, 3, 2, 8)
+        self.Q_aff = _upload(pr.encode_g2([self.Q])[0], dev)  # (2, 2, 8)
+        self.pk0_aff = _upload(pr.encode_g2([self.pk[0]])[0], dev)
+        self.table2 = cv.FixedBaseTable(self.ped2).to(dev)
+        self.tableP = cv.FixedBaseTable([self.P]).to(dev)
+
+    @_spanned("batch.membership.verify")
+    def verify(self, proofs: Sequence[sigproof.MembershipProof], commitments: Sequence) -> np.ndarray:
+        B = len(proofs)
+        if B == 0:
+            return np.zeros(0, dtype=bool)
+        mx.counter("batch.membership.proofs").inc(B)
+        dev = self.device
+        with mx.span("batch.range.parse", rows=B):
+            z = np.stack([
+                cv.encode_scalars([p.value_resp for p in proofs]),
+                cv.encode_scalars([p.hash_resp for p in proofs]),
+                cv.encode_scalars([p.sig_bf_resp for p in proofs]),
+                cv.encode_scalars([p.challenge for p in proofs]),
+            ], axis=1)  # (B, 4, 8): value, hash, sig_bf, challenge
+            com_resp = np.stack([z[:, 0], cv.encode_scalars([p.com_bf_resp for p in proofs])], axis=1)
+            neg_chal = cv.encode_scalars([-p.challenge for p in proofs])
+            S_aff = pr.encode_g1([p.signature.S for p in proofs])
+            R_aff = pr.encode_g1([p.signature.R for p in proofs])
+            com_jac = cv.encode_points(commitments)
+        with mx.span("batch.range.device", rows=B):
+            z_t = _upload(z, dev)
+            S_t, R_t = _upload(S_aff, dev), _upload(R_aff, dev)
+            # G2 term: t = PK1^{z_v} + PK2^{z_h}
+            bases = self.pk12.unsqueeze(0).expand((B,) + tuple(self.pk12.shape)).reshape(
+                (2 * B,) + tuple(self.pk12.shape[1:])).contiguous()
+            terms = st.g2_mul_rows(bases, z_t[:, 0:2].reshape(2 * B, lb.NWORDS).contiguous())
+            terms = terms.reshape((B, 2) + tuple(terms.shape[1:]))
+            t_aff = st.g2_to_affine_rows(st.g2_add_rows(terms[:, 0].contiguous(), terms[:, 1].contiguous()))
+            # G1 sides: -S^c as S^{r-c}, R^c and P^{z_bf}; one to-affine
+            # launch for all three. An affine (0, 0) (S or R at infinity)
+            # enters as the Jacobian (0, 0, 1), as in the reference.
+            Sj = _upload(st.affine_to_jac_np(S_aff), dev)
+            Rj = _upload(st.affine_to_jac_np(R_aff), dev)
+            powc = st.g1_mul_rows(torch.cat([Sj, Rj]),
+                                  torch.cat([_upload(neg_chal, dev), z_t[:, 3]]).contiguous())
+            Pz = self.tableP(z_t[:, 2:3].contiguous())
+            aff = st.g1_to_affine_rows(torch.cat([powc, Pz]))
+            negSc, Rc, Pz_aff = aff[:B], aff[B : 2 * B], aff[2 * B :]
+            # G1 commitment: ped0^{z_v} ped1^{z_cb} - com^c
+            fixed = self.table2(_upload(com_resp, dev))
+            comc = st.g1_mul_rows(_upload(com_jac, dev), z_t[:, 3].contiguous())
+            com_val = st.g1_sub_rows(fixed, comc)
+            # 4-leg pairing products; no infinity mask (the reference
+            # passes none: a leg at infinity enters the Miller loop as
+            # the affine (0, 0))
+            Ps = torch.stack([negSc, Rc, R_t, Pz_aff], dim=1)  # (B, 4, 2, 8)
+            Qs = torch.stack([self.Q_aff.expand_as(t_aff), self.pk0_aff.expand_as(t_aff), t_aff,
+                              self.Q_aff.expand_as(t_aff)], dim=1)  # (B, 4, 2, 2, 8)
+            gt = pr.pairing_product_staged(Ps, Qs).cpu().numpy()
+            com_np = com_val.cpu().numpy()
+        with mx.span("batch.range.decode", rows=B):
+            gt_host = tw.decode_fp12(gt)
+            com_host = cv.decode_points(com_np)
+        out = np.zeros(B, dtype=bool)
+        with mx.span("batch.range.challenge", rows=B):
+            for i, (p, com) in enumerate(zip(proofs, commitments)):
+                if p.commitment != com:
+                    continue
+                mv = sigproof.MembershipVerifier(com, self.P, self.Q, self.pk, self.ped2)
+                out[i] = mv._challenge(gt_host[i], com_host[i], p.signature) == p.challenge
+        return out
+
+
 class BatchedTransferVerifier:
     """Verifies whole blocks of same-shape zkatdlog transfer proofs.
 
-    Mirrors `transfer.TransferVerifier`, with the group work of ALL
-    transactions in one launch per stage. This slice takes 1-in/1-out
-    blocks; other shapes raise `NotImplementedError`.
+    Mirrors `transfer.TransferVerifier`, with the group and pairing work
+    of ALL transactions in one launch per stage: the well-formedness
+    proofs, then (unless the shape is 1-in/1-out) the range proofs'
+    membership proofs, flattened over (tx, output, digit), and their
+    equality proofs. A block of mixed shapes raises NotImplementedError.
     """
 
     def __init__(self, pp: PublicParams, device=None):
         self.pp = pp
         self.device = resolve_device(device)
         self.wf = BatchedWFVerifier(pp, device=self.device)
+        self.membership = BatchedMembershipVerifier(pp, device=self.device)
         self.table3 = self.wf.table  # ped 3-base table
+        self.table2 = self.membership.table2  # ped[:2]
 
     @_spanned("batch.transfer.verify")
     def verify(self, txs: Sequence[Tuple[list, list, bytes]]) -> np.ndarray:
         """txs: (inputs, outputs, transfer_proof_bytes), uniform shapes.
-        Returns bool array (B,)."""
+        Returns bool array (B,). 1-in/1-out transfers carry no range
+        proof (reference transfer.go:55-59)."""
         B = len(txs)
         if B == 0:
             return np.zeros(0, dtype=bool)
         n_in, n_out = len(txs[0][0]), len(txs[0][1])
-        if (n_in, n_out) != (1, 1) or any(
-            (len(t[0]), len(t[1])) != (n_in, n_out) for t in txs
-        ):
+        if any((len(t[0]), len(t[1])) != (n_in, n_out) for t in txs):
+            shapes = sorted({(len(t[0]), len(t[1])) for t in txs})
             raise NotImplementedError(
-                f"batched verify of {n_in}-in/{n_out}-out transfers: {RANGE_PATH_ITEM}"
+                f"batched verify of a block of mixed transfer shapes {shapes}: "
+                "split the block by (inputs, outputs)"
             )
         proofs = []
         ok = np.ones(B, dtype=bool)
@@ -189,5 +283,96 @@ class BatchedTransferVerifier:
                 proofs.append(TransferProof(wf=b"", range_correctness=None))
                 ok[i] = False
         ok &= self.wf.verify([(t[0], t[1], p.wf) for t, p in zip(txs, proofs)])
+        if (n_in, n_out) != (1, 1):
+            ok &= self._verify_ranges(txs, proofs, n_out)
         mx.counter("batch.transfer.txs").inc(B)
+        return ok
+
+    def _verify_ranges(self, txs, proofs, n_out: int) -> np.ndarray:
+        """The range proofs of a block: False for a missing or malformed
+        proof, a failed membership proof or a failed equality proof."""
+        B = len(txs)
+        ok = np.ones(B, dtype=bool)
+        rp = self.pp.range_params
+        exponent, base = rp.exponent, rp.base
+        with mx.span("batch.range.parse", rows=B):
+            ranges: List[Optional[RangeProof]] = []
+            for i, p in enumerate(proofs):
+                rpf = None
+                if p.range_correctness is not None:
+                    try:
+                        rpf = RangeProof.from_bytes(p.range_correctness)
+                        if (
+                            len(rpf.membership_proofs) != n_out
+                            or len(rpf.digit_commitments) != n_out
+                            or any(len(r) != exponent for r in rpf.membership_proofs)
+                            or any(len(r) != exponent for r in rpf.digit_commitments)
+                            or len(rpf.value_resps) != n_out
+                            or len(rpf.token_bf_resps) != n_out
+                            or len(rpf.com_bf_resps) != n_out
+                        ):
+                            rpf = None
+                    except Exception:
+                        rpf = None
+                ok[i] = rpf is not None
+                ranges.append(rpf)
+            # membership proofs, flattened over (tx, output, digit)
+            mem_proofs, mem_coms, mem_idx = [], [], []
+            for i, rpf in enumerate(ranges):
+                if rpf is None:
+                    continue
+                for k in range(n_out):
+                    for d in range(exponent):
+                        mem_proofs.append(rpf.membership_proofs[k][d])
+                        mem_coms.append(rpf.digit_commitments[k][d])
+                        mem_idx.append(i)
+        if mem_proofs:
+            mem_ok = self.membership.verify(mem_proofs, mem_coms)
+            for j, i in enumerate(mem_idx):
+                if not mem_ok[j]:
+                    ok[i] = False
+
+        # equality proofs: token rows (3 bases) and aggregate rows (2)
+        live = [i for i in range(B) if ranges[i] is not None]
+        if not live:
+            return ok
+        nl = len(live)
+        with mx.span("batch.range.parse", rows=nl):
+            tok_resp, tok_stmt, agg_resp, agg_stmt, chals = [], [], [], [], []
+            powers = [base**d % hm.R for d in range(exponent)]
+            for i in live:
+                rpf = ranges[i]
+                for k in range(n_out):
+                    tok_resp.extend([rpf.type_resp, rpf.value_resps[k], rpf.token_bf_resps[k]])
+                    tok_stmt.append(txs[i][1][k])
+                    agg_stmt.append(hm.g1_multiexp(rpf.digit_commitments[k], powers))
+                    agg_resp.extend([rpf.value_resps[k], rpf.com_bf_resps[k]])
+                chals.append(rpf.challenge)
+            rows = nl * n_out
+            tok_resp = cv.encode_scalars(tok_resp).reshape(rows, 3, lb.NWORDS)
+            agg_resp = cv.encode_scalars(agg_resp).reshape(rows, 2, lb.NWORDS)
+            chal_rep = np.repeat(cv.encode_scalars(chals), n_out, axis=0)
+            tok_stmt = cv.encode_points(tok_stmt)
+            agg_stmt = cv.encode_points(agg_stmt)
+        dev = self.device
+        with mx.span("batch.range.device", rows=rows):
+            chal_t = _upload(chal_rep, dev)
+            com_tok = st.g1_sub_rows(self.table3(_upload(tok_resp, dev)),
+                                     st.g1_mul_rows(_upload(tok_stmt, dev), chal_t))
+            com_val = st.g1_sub_rows(self.table2(_upload(agg_resp, dev)),
+                                     st.g1_mul_rows(_upload(agg_stmt, dev), chal_t))
+            com_tok, com_val = com_tok.cpu().numpy(), com_val.cpu().numpy()
+        with mx.span("batch.range.decode", rows=rows):
+            com_tok_h = cv.decode_points(com_tok)
+            com_val_h = cv.decode_points(com_val)
+        with mx.span("batch.range.challenge", rows=nl):
+            for li, i in enumerate(live):
+                rpf = ranges[i]
+                verifier = RangeVerifier(txs[i][1], base, exponent, self.pp.ped_params,
+                                         rp.sign_pk, self.pp.ped_gen, rp.Q)
+                chal = verifier._challenge(com_tok_h[li * n_out : (li + 1) * n_out],
+                                           com_val_h[li * n_out : (li + 1) * n_out],
+                                           rpf.digit_commitments)
+                if chal != rpf.challenge:
+                    ok[i] = False
         return ok

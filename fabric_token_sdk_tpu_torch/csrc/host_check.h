@@ -12,3 +12,4 @@
 #define __constant__
 #define __forceinline__ inline
 #define __ldg(ptr) (*(ptr))
+#define FTS_NOINLINE __attribute__((noinline))

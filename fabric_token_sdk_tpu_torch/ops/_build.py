@@ -29,8 +29,12 @@ import torch
 _HERE = os.path.dirname(os.path.abspath(__file__))
 CSRC = os.path.join(os.path.dirname(_HERE), "csrc")
 BUILD_DIR = os.path.join(os.path.dirname(_HERE), "_build")
-SOURCES = ("g1_msm.cu", "g1_mul.cu", "g1_addsub.cu", "fp_ops.cu")
-HEADERS = ("bn254_fp.cuh", "bn254_g1.cuh")
+SOURCES = (
+    "g1_msm.cu", "g1_mul.cu", "g1_addsub.cu", "fp_ops.cu", "g1_to_affine.cu",
+    "g2_mul.cu", "g2_add.cu", "g2_to_affine.cu", "miller.cu", "gt_product.cu",
+    "final_exp.cu",
+)
+HEADERS = ("bn254_fp.cuh", "bn254_g1.cuh", "bn254_tower.cuh", "bn254_g2.cuh")
 NVCC_FLAGS = (
     "-gencode=arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
@@ -128,8 +132,21 @@ G1_MSM = Kernel("g1_msm", "g1_msm.cu", "fts_g1_msm", [_PTR, _PTR, _PTR, _INT, _I
 G1_MUL = Kernel("g1_mul", "g1_mul.cu", "fts_g1_mul", [_PTR, _PTR, _PTR, _INT])
 G1_ADDSUB = Kernel("g1_addsub", "g1_addsub.cu", "fts_g1_addsub", [_PTR, _PTR, _PTR, _INT, _INT])
 FP_OPS = Kernel("fp_ops", "fp_ops.cu", "fts_fp_ops", [_PTR, _PTR, _PTR, _INT])
+G1_TO_AFFINE = Kernel("g1_to_affine", "g1_to_affine.cu", "fts_g1_to_affine", [_PTR, _PTR, _INT])
+G2_MUL = Kernel("g2_mul", "g2_mul.cu", "fts_g2_mul", [_PTR, _PTR, _PTR, _INT])
+G2_ADD = Kernel("g2_add", "g2_add.cu", "fts_g2_add", [_PTR, _PTR, _PTR, _INT])
+G2_TO_AFFINE = Kernel("g2_to_affine", "g2_to_affine.cu", "fts_g2_to_affine", [_PTR, _PTR, _INT])
+MILLER = Kernel("miller", "miller.cu", "fts_miller", [_PTR, _PTR, _PTR, _INT])
+GT_PRODUCT = Kernel("gt_product", "gt_product.cu", "fts_gt_product", [_PTR, _PTR, _INT, _INT])
+FINAL_EXP = Kernel("final_exp", "final_exp.cu", "fts_final_exp", [_PTR, _PTR, _INT])
 
-PATH_KERNELS = (G1_MSM, G1_MUL, G1_ADDSUB)  # the kernels of the verify path
+# the kernels of the verify path: the 1-in/1-out transfer runs the first
+# three, a transfer with a range proof all ten
+PATH_KERNELS = (
+    G1_MSM, G1_MUL, G1_ADDSUB, G1_TO_AFFINE, G2_MUL, G2_ADD, G2_TO_AFFINE,
+    MILLER, GT_PRODUCT, FINAL_EXP,
+)
+WF_KERNELS = PATH_KERNELS[:3]
 
 
 def check_cuda_tensor(name: str, t: torch.Tensor, shape) -> None:

@@ -1,4 +1,4 @@
-"""Row-batched G1 stages of the verify plane: CUDA kernels and plain versions.
+"""Row-batched stages of the verify plane: CUDA kernels and plain versions.
 
 Counterpart of `fabric_token_sdk_tpu/ops/stages.py`. Each `g1_*_rows`
 function takes int32 tensors of flat rows and issues ONE launch over all
@@ -11,8 +11,10 @@ raises; on the CPU it runs the kernel's plain torch version, defined
 beside it here. `chip_smoke.py` holds each kernel against its plain
 version on the card.
 
-Layouts: points (N, 3, 8) Montgomery Jacobian words, scalars canonical
-words, fixed-base tables (nbases*64, 16, 3, 8); outputs are canonical.
+Layouts: G1 points (N, 3, 8) Montgomery Jacobian words, G1 affine
+(N, 2, 8); G2 points (N, 3, 2, 8), G2 affine (N, 2, 2, 8); Fp12/GT
+(N, 6, 2, 8); scalars canonical words (N, 8); fixed-base tables
+(nbases*64, 16, 3, 8). Outputs are canonical.
 """
 
 from __future__ import annotations
@@ -20,9 +22,12 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from . import curve as cv, limbs as lb
-from ._build import G1_ADDSUB, G1_MSM, G1_MUL, check_cuda_tensor
-from .field import FP
+from . import curve as cv, curve2 as cv2, limbs as lb, pairing as pr
+from ._build import (
+    FINAL_EXP, G1_ADDSUB, G1_MSM, G1_MUL, G1_TO_AFFINE, G2_ADD, G2_MUL, G2_TO_AFFINE,
+    GT_PRODUCT, MILLER, check_cuda_tensor,
+)
+from .field import FP, half_to_words, words_to_half
 from ..utils import metrics as mx
 
 
@@ -117,6 +122,164 @@ def g1_add_rows(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
 def g1_sub_rows(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     """a - b on (N, 3, 8) Jacobian rows (commitment minus statement)."""
     return _addsub_rows(a, b, negate_b=True)
+
+
+# ------------------------------------------------------------------ g1_to_affine
+
+def g1_to_affine_plain(points: torch.Tensor) -> torch.Tensor:
+    """Plain version of the g1_to_affine kernel."""
+    x, y, z = cv.to_half3(points)
+    zi = FP.inv(z)
+    zi2 = FP.mul(zi, zi)
+    ax, ay = FP.mul(torch.stack([x, y], dim=-1), zi2.unsqueeze(-1)).unbind(-1)
+    return half_to_words(FP.canon(torch.stack([ax, FP.mul(ay, zi)], dim=-1)))
+
+
+def g1_to_affine_rows(points: torch.Tensor) -> torch.Tensor:
+    """(N, 3, 8) Jacobian -> (N, 2, 8) affine; infinity -> (0, 0)."""
+    if not _route("g1_to_affine", points):
+        return g1_to_affine_plain(points)
+    n = points.shape[0]
+    check_cuda_tensor("g1_to_affine points", points, (n, 3, lb.NWORDS))
+    out = torch.empty((n, 2, lb.NWORDS), dtype=torch.int32, device=points.device)
+    with mx.span("stages.run", kernel="g1_to_affine", rows=n):
+        G1_TO_AFFINE.launch(points.device, points.data_ptr(), out.data_ptr(), n)
+    return out
+
+
+# ------------------------------------------------------------------ g2
+
+_G2_SHAPE = (3, 2, lb.NWORDS)
+
+
+def g2_mul_plain(points: torch.Tensor, scalars: torch.Tensor) -> torch.Tensor:
+    """Plain version of the g2_mul kernel."""
+    return cv2.from_half3(cv2.scalar_mul(cv2.to_half3(points), scalars))
+
+
+def g2_mul_rows(points: torch.Tensor, scalars: torch.Tensor) -> torch.Tensor:
+    """[k]Q on G2: (N, 3, 2, 8) x (N, 8) canonical -> (N, 3, 2, 8)."""
+    if not _route("g2_mul", points, scalars):
+        return g2_mul_plain(points, scalars)
+    n = scalars.shape[0]
+    check_cuda_tensor("g2_mul points", points, (n,) + _G2_SHAPE)
+    check_cuda_tensor("g2_mul scalars", scalars, (n, lb.NWORDS))
+    out = torch.empty((n,) + _G2_SHAPE, dtype=torch.int32, device=points.device)
+    with mx.span("stages.run", kernel="g2_mul", rows=n):
+        G2_MUL.launch(points.device, points.data_ptr(), scalars.data_ptr(), out.data_ptr(), n)
+    return out
+
+
+def g2_add_plain(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """Plain version of the g2_add kernel."""
+    return cv2.from_half3(cv2.add(cv2.to_half3(a), cv2.to_half3(b)))
+
+
+def g2_add_rows(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """a + b on (N, 3, 2, 8) G2 Jacobian rows."""
+    if not _route("g2_add", a, b):
+        return g2_add_plain(a, b)
+    n = a.shape[0]
+    check_cuda_tensor("g2_add a", a, (n,) + _G2_SHAPE)
+    check_cuda_tensor("g2_add b", b, (n,) + _G2_SHAPE)
+    out = torch.empty((n,) + _G2_SHAPE, dtype=torch.int32, device=a.device)
+    with mx.span("stages.run", kernel="g2_add", rows=n):
+        G2_ADD.launch(a.device, a.data_ptr(), b.data_ptr(), out.data_ptr(), n)
+    return out
+
+
+def g2_to_affine_plain(points: torch.Tensor) -> torch.Tensor:
+    """Plain version of the g2_to_affine kernel."""
+    ax, ay = cv2.to_affine(cv2.to_half3(points))
+    return half_to_words(FP.canon(torch.stack([ax, ay], dim=-2)))
+
+
+def g2_to_affine_rows(points: torch.Tensor) -> torch.Tensor:
+    """(N, 3, 2, 8) Jacobian -> (N, 2, 2, 8) affine; infinity -> (0, 0)."""
+    if not _route("g2_to_affine", points):
+        return g2_to_affine_plain(points)
+    n = points.shape[0]
+    check_cuda_tensor("g2_to_affine points", points, (n,) + _G2_SHAPE)
+    out = torch.empty((n, 2, 2, lb.NWORDS), dtype=torch.int32, device=points.device)
+    with mx.span("stages.run", kernel="g2_to_affine", rows=n):
+        G2_TO_AFFINE.launch(points.device, points.data_ptr(), out.data_ptr(), n)
+    return out
+
+
+def g2_tree_sum_rows(terms: torch.Tensor) -> torch.Tensor:
+    """Per-row sum of k G2 terms, (N, k, 3, 2, 8) -> (N, 3, 2, 8): a host
+    fold, each level one g2_add_rows over the flattened pairs (legs i
+    and i + k/2 first, as the reference)."""
+    while terms.shape[1] > 1:
+        n, k = terms.shape[0], terms.shape[1]
+        half = k // 2
+        rest = terms[:, 2 * half :]
+        summed = g2_add_rows(
+            terms[:, :half].reshape((-1,) + _G2_SHAPE).contiguous(),
+            terms[:, half : 2 * half].reshape((-1,) + _G2_SHAPE).contiguous(),
+        ).reshape((n, half) + _G2_SHAPE)
+        terms = torch.cat([summed, rest], dim=1) if rest.shape[1] else summed
+    return terms[:, 0]
+
+
+# ------------------------------------------------------------------ pairing
+
+_FP12_SHAPE = (6, 2, lb.NWORDS)
+
+
+def miller_plain(P: torch.Tensor, Q: torch.Tensor) -> torch.Tensor:
+    """Plain version of the miller kernel."""
+    p, q = words_to_half(P), words_to_half(Q)  # (16, N, 2), (16, N, 2, 2)
+    f = pr.miller_loop(p[..., 0], p[..., 1], q[..., 0, :], q[..., 1, :])
+    return half_to_words(FP.canon(f))
+
+
+def miller_rows(P: torch.Tensor, Q: torch.Tensor) -> torch.Tensor:
+    """Miller loop a leg: G1 affine (N, 2, 8), G2 affine (N, 2, 2, 8)
+    -> (N, 6, 2, 8). No infinity handling: (0, 0) legs run as given."""
+    if not _route("miller", P, Q):
+        return miller_plain(P, Q)
+    n = P.shape[0]
+    check_cuda_tensor("miller P", P, (n, 2, lb.NWORDS))
+    check_cuda_tensor("miller Q", Q, (n, 2, 2, lb.NWORDS))
+    out = torch.empty((n,) + _FP12_SHAPE, dtype=torch.int32, device=P.device)
+    with mx.span("stages.run", kernel="miller", rows=n):
+        MILLER.launch(P.device, P.data_ptr(), Q.data_ptr(), out.data_ptr(), n)
+    return out
+
+
+def gt_product_plain(f: torch.Tensor) -> torch.Tensor:
+    """Plain version of the gt_product kernel."""
+    return half_to_words(FP.canon(pr.product_rows(words_to_half(f))))
+
+
+def gt_product_rows(f: torch.Tensor) -> torch.Tensor:
+    """Per-row product of K Fp12 values: (N, K, 6, 2, 8) -> (N, 6, 2, 8)."""
+    if not _route("gt_product", f):
+        return gt_product_plain(f)
+    n, k = f.shape[0], f.shape[1]
+    check_cuda_tensor("gt_product f", f, (n, k) + _FP12_SHAPE)
+    out = torch.empty((n,) + _FP12_SHAPE, dtype=torch.int32, device=f.device)
+    with mx.span("stages.run", kernel="gt_product", rows=n):
+        GT_PRODUCT.launch(f.device, f.data_ptr(), out.data_ptr(), n, k)
+    return out
+
+
+def final_exp_plain(f: torch.Tensor) -> torch.Tensor:
+    """Plain version of the final_exp kernel."""
+    return half_to_words(FP.canon(pr.final_exp(words_to_half(f))))
+
+
+def final_exp_rows(f: torch.Tensor) -> torch.Tensor:
+    """f^((p^12-1)/r) a row: (N, 6, 2, 8) -> (N, 6, 2, 8) GT."""
+    if not _route("final_exp", f):
+        return final_exp_plain(f)
+    n = f.shape[0]
+    check_cuda_tensor("final_exp f", f, (n,) + _FP12_SHAPE)
+    out = torch.empty((n,) + _FP12_SHAPE, dtype=torch.int32, device=f.device)
+    with mx.span("stages.run", kernel="final_exp", rows=n):
+        FINAL_EXP.launch(f.device, f.data_ptr(), out.data_ptr(), n)
+    return out
 
 
 # ------------------------------------------------------------------ host glue

@@ -18,7 +18,12 @@ import pytest
 import torch
 
 from fabric_token_sdk_tpu_torch.crypto import hostmath as hm
-from fabric_token_sdk_tpu_torch.ops import curve as cv, field as fd, limbs as lb, stages as st
+from fabric_token_sdk_tpu_torch.ops import curve as cv, curve2 as cv2, field as fd, limbs as lb
+from fabric_token_sdk_tpu_torch.ops import pairing as pr, stages as st, tower as tw
+
+# The plain versions are many small tensor ops: one intra-op thread runs
+# them faster than several and leaves the other test workers their cores.
+torch.set_num_threads(1)
 
 CSRC = os.path.join(os.path.dirname(__file__), "..", "fabric_token_sdk_tpu_torch", "csrc")
 _P, _I = ctypes.c_void_p, ctypes.c_int
@@ -27,6 +32,13 @@ ENTRY = {
     "g1_msm": ("host_g1_msm", [_P, _P, _P, _I, _I]),
     "g1_mul": ("host_g1_mul", [_P, _P, _P, _I]),
     "g1_addsub": ("host_g1_addsub", [_P, _P, _P, _I, _I]),
+    "g1_to_affine": ("host_g1_to_affine", [_P, _P, _I]),
+    "g2_mul": ("host_g2_mul", [_P, _P, _P, _I]),
+    "g2_add": ("host_g2_add", [_P, _P, _P, _I]),
+    "g2_to_affine": ("host_g2_to_affine", [_P, _P, _I]),
+    "miller": ("host_miller", [_P, _P, _P, _I]),
+    "gt_product": ("host_gt_product", [_P, _P, _I, _I]),
+    "final_exp": ("host_final_exp", [_P, _P, _I]),
 }
 
 
@@ -36,16 +48,19 @@ def host(tmp_path_factory):
     if cxx is None:
         pytest.skip("no C++ compiler to build the kernels' row functions for the CPU")
     out = tmp_path_factory.mktemp("csrc_host")
-    fns = {}
-    for name, (symbol, argtypes) in ENTRY.items():
-        so = str(out / f"{name}.so")
-        subprocess.run(
+    procs = {}
+    for name in ENTRY:  # all sources compile at once
+        procs[name] = subprocess.Popen(
             [cxx, "-x", "c++", "-std=c++17", "-O1", "-DFTS_HOST_CHECK",
              "-include", os.path.join(CSRC, "host_check.h"), "-shared", "-fPIC",
-             "-o", so, os.path.join(CSRC, f"{name}.cu")],
-            check=True, capture_output=True, timeout=300,
+             "-o", str(out / f"{name}.so"), os.path.join(CSRC, f"{name}.cu")],
+            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True,
         )
-        fn = getattr(ctypes.CDLL(so), symbol)
+    fns = {}
+    for name, (symbol, argtypes) in ENTRY.items():
+        log, _ = procs[name].communicate(timeout=300)
+        assert procs[name].returncode == 0, f"{name}.cu: {log}"
+        fn = getattr(ctypes.CDLL(str(out / f"{name}.so")), symbol)
         fn.argtypes, fn.restype = argtypes, None
         fns[name] = fn
     return fns
@@ -107,3 +122,69 @@ def test_g1_msm_row_matches_plain_and_hostmath(host, nbases):
     host["g1_msm"](table.table.data_ptr(), sc.data_ptr(), out.data_ptr(), len(rows), nbases)
     assert torch.equal(out, st.g1_msm_plain(table.table, sc))
     assert cv.decode_points(out) == [hm.g1_multiexp(bases, r) for r in rows]
+
+
+def _g2pts(rng, n):
+    return [hm.g2_mul(hm.G2_GEN, rng.randrange(1, hm.R)) for _ in range(n)]
+
+
+def test_g1_to_affine_row_matches_plain_and_hostmath(host):
+    pts = _pts(random.Random(25), 3) + [None]
+    p = torch.from_numpy(cv.encode_points(pts))
+    out = torch.empty((len(pts), 2, 8), dtype=torch.int32)
+    host["g1_to_affine"](p.data_ptr(), out.data_ptr(), len(pts))
+    assert torch.equal(out, st.g1_to_affine_plain(p))
+    assert torch.equal(out, torch.from_numpy(pr.encode_g1(pts)))  # infinity -> (0, 0)
+
+
+def test_g2_add_and_to_affine_rows_match_plain_and_hostmath(host):
+    q0, q1, q2 = _g2pts(random.Random(26), 3)
+    A = [q0, q0, q0, None, None, q1]
+    B = [q0, hm.g2_neg(q0), q1, q2, None, None]
+    a = torch.from_numpy(cv2.encode_points(A))
+    b = torch.from_numpy(cv2.encode_points(B))
+    out = torch.empty_like(a)
+    host["g2_add"](a.data_ptr(), b.data_ptr(), out.data_ptr(), len(A))
+    assert torch.equal(out, st.g2_add_plain(a, b))
+    want = [hm.g2_add(x, y) for x, y in zip(A, B)]
+    assert cv2.decode_points(out) == want
+    aff = torch.empty((len(A), 2, 2, 8), dtype=torch.int32)
+    host["g2_to_affine"](out.data_ptr(), aff.data_ptr(), len(A))
+    assert torch.equal(aff, st.g2_to_affine_plain(out))
+    assert torch.equal(aff, torch.from_numpy(pr.encode_g2(want)))
+
+
+def test_g2_mul_row_matches_plain_and_hostmath(host):
+    rng = random.Random(27)
+    pts = _g2pts(rng, 3) + [None]
+    ks = [0, 1, hm.R - 1, rng.randrange(hm.R)]
+    p = torch.from_numpy(cv2.encode_points(pts))
+    k = torch.from_numpy(cv.encode_scalars(ks))
+    out = torch.empty_like(p)
+    host["g2_mul"](p.data_ptr(), k.data_ptr(), out.data_ptr(), len(ks))
+    assert torch.equal(out, st.g2_mul_plain(p, k))
+    assert cv2.decode_points(out) == [hm.g2_mul(q, s) if q else None for q, s in zip(pts, ks)]
+
+
+def test_pairing_rows_match_plain_and_hostmath(host):
+    """miller (with a (0, 0) leg), gt_product over K = 3 and final_exp:
+    Miller values equal the plain version's exactly; after the final
+    exponentiation the finite legs equal hostmath's pairing."""
+    rng = random.Random(28)
+    Ps = _pts(rng, 2) + [None]
+    Qs = _g2pts(rng, 3)
+    P = torch.from_numpy(pr.encode_g1(Ps))
+    Q = torch.from_numpy(pr.encode_g2(Qs))
+    f = torch.empty((3, 6, 2, 8), dtype=torch.int32)
+    host["miller"](P.data_ptr(), Q.data_ptr(), f.data_ptr(), 3)
+    assert torch.equal(f, st.miller_plain(P, Q))
+    g = torch.empty_like(f)
+    host["final_exp"](f.data_ptr(), g.data_ptr(), 3)
+    assert torch.equal(g, st.final_exp_plain(f))
+    assert tw.decode_fp12(g)[:2] == [hm.pairing(p, q) for p, q in zip(Ps[:2], Qs[:2])]
+    ff = f.reshape(1, 3, 6, 2, 8).contiguous()
+    h = torch.empty((1, 6, 2, 8), dtype=torch.int32)
+    host["gt_product"](ff.data_ptr(), h.data_ptr(), 1, 3)
+    assert torch.equal(h, st.gt_product_plain(ff))
+    vals = tw.decode_fp12(f)
+    assert tw.decode_fp12(h)[0] == hm.fp12_mul(hm.fp12_mul(vals[0], vals[1]), vals[2])
