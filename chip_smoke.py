@@ -23,6 +23,22 @@ every kernel of each path must have been launched by that path's run.
 The range kernels are then timed on the very inputs the verify gave
 them, at both sizes, and held against their plain versions there.
 
+Then the prove plane, through `TransferProver.batch` on `cuda` at the JAX
+bench's shape and values (2-in/2-out, [100, 55] -> [120, 35]) for a
+64-transaction group and a 1,024-transaction backlog, all distinct, and
+1-in/1-out for 64 (the WF-only prove): every fixed-base multiexp goes
+through the select kernel (`g1_msm_select`), the signature obfuscation
+through `g1_addsub` as an add, the GT pre-commitments through the K = 2
+product. The proofs must be accepted by the host and batched verifiers,
+planted tampering rejected, a small group's bytes equal the plain
+versions' on the CPU for one seed, and each launch count equal the
+plan; the select multiexp, the add and the K = 2 product are held
+against their plain versions on the prover's own inputs, and the select
+kernel is timed on zero and on random scalars beside the gather. Last,
+64 Pointcheval-Sanders signatures (the range parameters' signed set,
+randomised, with tampered and malformed rows) through
+`BatchedPSVerifier`, verdicts equal the host's.
+
 Phases print one line each. Before the last line come the GPU's name
 and power limit as `nvidia-smi` reports them and one JSON object with
 each path kernel's launches, times and bound; the last line is
@@ -111,7 +127,22 @@ RANGE_KERNELS = ("g1_to_affine", "g2_mul", "g2_add", "g2_to_affine", "miller",
 # launches of one 2-in/2-out verify, reckoned from crypto/batch.py: WF
 # (msm, mul, sub), membership (msm x2, mul x2, sub, and one of each range
 # kernel), equality (msm x2, mul x2, sub x2)
-RANGE_LAUNCHES = {"g1_msm": 5, "g1_mul": 5, "g1_addsub": 4, **{k: 1 for k in RANGE_KERNELS}}
+RANGE_LAUNCHES = {"g1_msm": 5, "g1_mul": 5, "g1_addsub": 4, **{k: 1 for k in RANGE_KERNELS},
+                  "g1_msm_select": 0}
+# launches of one 2-in/2-out prove, reckoned from crypto/batch_prove.py:
+# select multiexps for the WF (ped3), ped2, equality (ped3) and P rows,
+# the signature ladder, the obfuscating add, the G2 ladder, add and
+# to-affine, and the K = 2 pairing product; no gather, no to-affine in G1
+PROVE_LAUNCHES = {"g1_msm": 0, "g1_mul": 1, "g1_addsub": 1, "g1_to_affine": 0, "g2_mul": 1,
+                  "g2_add": 1, "g2_to_affine": 1, "miller": 1, "gt_product": 1, "final_exp": 1,
+                  "g1_msm_select": 4}
+PROVE_WF_LAUNCHES = {**{k: 0 for k in PROVE_LAUNCHES}, "g1_msm_select": 1}
+# a PS verify: the G2 ladder, two G2 adds (the tree of 2 terms, then PK0),
+# to-affine, and the K = 2 product
+PS_LAUNCHES = {**{k: 0 for k in PROVE_LAUNCHES}, "g2_mul": 1, "g2_add": 2, "g2_to_affine": 1,
+               "miller": 1, "gt_product": 1, "final_exp": 1}
+PROVE_REPS = (5, 3)  # block, batch
+PS_SIGS = 64
 REPLACES = {
     "g1_msm": "fabric_token_sdk_tpu/ops/stages.py:61",
     "g1_mul": "fabric_token_sdk_tpu/ops/curve.py:122",
@@ -123,6 +154,9 @@ REPLACES = {
     "miller": "fabric_token_sdk_tpu/ops/pairing.py:180",
     "gt_product": "fabric_token_sdk_tpu/ops/pairing.py:361",
     "final_exp": "fabric_token_sdk_tpu/ops/pairing.py:250",
+    "g1_msm_select": "fabric_token_sdk_tpu/ops/curve.py:256",
+    "g1_add": "fabric_token_sdk_tpu/ops/curve.py:60",
+    "gt_product_k2": "fabric_token_sdk_tpu/ops/pairing.py:361",
 }
 
 
@@ -200,7 +234,9 @@ def main() -> int:
     sys.path.insert(0, ROOT)
     from fabric_token_sdk_tpu_torch.crypto import hostmath as hm, token as tok
     from fabric_token_sdk_tpu_torch.crypto import transfer as tr, wellformedness as wfm
-    from fabric_token_sdk_tpu_torch.crypto.batch import BatchedTransferVerifier
+    from fabric_token_sdk_tpu_torch.crypto import pssign
+    from fabric_token_sdk_tpu_torch.crypto.batch import BatchedPSVerifier, BatchedTransferVerifier
+    from fabric_token_sdk_tpu_torch.crypto.batch_prove import prover_for
     from fabric_token_sdk_tpu_torch.crypto.rangeproof import RangeProof
     from fabric_token_sdk_tpu_torch.crypto.setup import setup
     from fabric_token_sdk_tpu_torch.ops import _build, curve as cv, curve2 as cv2, field as fd
@@ -209,7 +245,7 @@ def main() -> int:
 
     dev = torch.device("cuda")
     rng = random.Random(args.seed)
-    kernels_by_name = {k.name: k for k in _build.PATH_KERNELS}
+    kernels_by_name = {k.name: k for k in _build.ALL_KERNELS}
 
     # ---------------------------------------------------------------- device
     smi = subprocess.run(
@@ -441,7 +477,7 @@ def main() -> int:
             fail("host verifier does not reject exactly the planted rows")
     verifier = BatchedTransferVerifier(pp, device="cuda")
 
-    for k in _build.PATH_KERNELS:
+    for k in _build.ALL_KERNELS:
         k.launches = 0
     t = time.perf_counter()
     got_block = verifier.verify(block)
@@ -456,33 +492,39 @@ def main() -> int:
     for name, n in launches.items():
         if n <= 0:
             fail(f"kernel {name} was not launched by the verify path")
+    if _build.G1_MSM_SELECT.launches:
+        fail("the verify path launched the select multiexp")
     say("slice", f"proved {BLOCK_TXS}+{BATCH_TXS} 1-in/1-out transfers in {t_prove:.1f} s; "
         f"first verify: {BLOCK_TXS}-tx block {t_block * 1e3:.1f} ms, {BATCH_TXS}-tx batch "
         f"{t_batch * 1e3:.1f} ms; planted rows rejected, verdicts equal the host verifier's "
         f"on all {BLOCK_TXS + BATCH_TXS} rows; launches {launches} [{card}]")
 
-    def medians(tag, cases):
-        """Repeated verifies on the warm verifier: median and spread."""
+    def medians(tag, cases, run=None, what="verify", unit="tx"):
+        """Repeated verifies on the warm verifier (or calls of `run`):
+        median and spread."""
+        run = run or verifier.verify
         out = {}
         for txs, reps in cases:
             walls = []
             for _ in range(reps):
                 t = time.perf_counter()
-                verifier.verify(txs)
+                run(txs)
+                torch.cuda.synchronize()
                 walls.append(time.perf_counter() - t)
             walls.sort()
             med = statistics.median(walls)
             out[len(txs)] = med
-            say("throughput", f"{tag} {len(txs)}-tx verify over {reps} runs: median "
-                f"{med * 1e3:.1f} ms ({len(txs) / med:.1f} tx/s), min {walls[0] * 1e3:.1f} ms, "
+            say("throughput", f"{tag} {len(txs)}-{unit} {what} over {reps} runs: median "
+                f"{med * 1e3:.1f} ms ({len(txs) / med:.1f} {unit}/s), min {walls[0] * 1e3:.1f} ms, "
                 f"max {walls[-1] * 1e3:.1f} ms [{card}]")
         return out
 
     medians("1-in/1-out", zip((block, batch), VERIFY_REPS["1-in/1-out"]))
 
-    def breakdown(tag, txs, kernels, span_names):
-        """One verify with spans on and CUDA events around each launch of
-        `kernels`; returns the launch names of that verify."""
+    def breakdown(tag, run, kernels, span_names, what="verify"):
+        """One call of `run` (a verify or a prove) with spans on and CUDA
+        events around each launch of `kernels`; returns the launch names
+        of that call."""
         events = []
 
         def with_events(kernel):
@@ -502,7 +544,8 @@ def main() -> int:
             k.launch = with_events(k)
         try:
             t = time.perf_counter()
-            verifier.verify(txs)
+            run()
+            torch.cuda.synchronize()
             t_prof = time.perf_counter() - t
         finally:
             for k in kernels:
@@ -514,17 +557,18 @@ def main() -> int:
         for name, (start, end) in events:
             kernel_ms[name] = kernel_ms.get(name, 0.0) + start.elapsed_time(end)
         busy_ms = sum(kernel_ms.values())
-        say("breakdown", f"{tag} {len(txs)}-tx verify {t_prof * 1e3:.1f} ms: " + ", ".join(
+        say("breakdown", f"{tag} {what} {t_prof * 1e3:.1f} ms: " + ", ".join(
             f"{name.split('.', 1)[-1]} {spans[name]['total_s'] * 1e3:.1f} ms"
-            for name in span_names if name in spans) + "; kernels in this verify by CUDA "
-            "events " + ", ".join(f"{name} {ms:.3f} ms" for name, ms in kernel_ms.items())
+            for name in span_names if name in spans) + f"; kernels in this {what.split()[-1]} "
+            "by CUDA events " + ", ".join(f"{name} {ms:.3f} ms" for name, ms in kernel_ms.items())
             + f", {busy_ms:.1f} ms in all ({len(events)} launches): no kernel running for "
-            f"{100 * (1 - busy_ms / (t_prof * 1e3)):.1f}% of the verify [{card}]")
+            f"{100 * (1 - busy_ms / (t_prof * 1e3)):.1f}% of the {what.split()[-1]} [{card}]")
         return [name for name, _ in events]
 
     wf_spans = ("batch.transfer.verify", "batch.wf.parse", "batch.wf.encode",
                 "batch.wf.device", "batch.wf.decode", "batch.wf.challenge")
-    names = breakdown("1-in/1-out", batch, _build.WF_KERNELS, wf_spans)
+    names = breakdown("1-in/1-out", lambda: verifier.verify(batch), _build.WF_KERNELS, wf_spans,
+                      f"{len(batch)}-tx verify")
     if sorted(names) != sorted(k.name for k in _build.WF_KERNELS):
         fail(f"profiled 1-in/1-out verify launched {names}")
 
@@ -595,7 +639,7 @@ def main() -> int:
         captured.clear()
         for name in RANGE_KERNELS:
             setattr(st, f"{name}_rows", capturing(name))
-        for k in _build.PATH_KERNELS:
+        for k in _build.ALL_KERNELS:
             k.launches = 0
         try:
             t = time.perf_counter()
@@ -604,7 +648,7 @@ def main() -> int:
         finally:
             for name, fn in originals.items():
                 setattr(st, f"{name}_rows", fn)
-        counts = {k.name: k.launches for k in _build.PATH_KERNELS}
+        counts = {k.name: k.launches for k in _build.ALL_KERNELS}
         if counts != RANGE_LAUNCHES:
             fail(f"a {len(txs)}-tx 2-in/2-out verify launched {counts}, expected {RANGE_LAUNCHES}")
         return got, wall, counts, dict(captured)
@@ -693,10 +737,259 @@ def main() -> int:
     range_medians = medians("2-in/2-out", zip((rblock, rbatch), VERIFY_REPS["2-in/2-out"]))
     range_spans = wf_spans + ("batch.membership.verify", "batch.range.parse", "batch.range.device",
                               "batch.range.decode", "batch.range.challenge")
-    names = breakdown("2-in/2-out", rbatch, _build.PATH_KERNELS, range_spans)
+    names = breakdown("2-in/2-out", lambda: verifier.verify(rbatch), _build.PATH_KERNELS,
+                      range_spans, f"{len(rbatch)}-tx verify")
     want_names = sorted(n for n, c in RANGE_LAUNCHES.items() for _ in range(c))
     if sorted(names) != want_names:
         fail(f"profiled 2-in/2-out verify launched {sorted(names)}")
+
+    # ---------------------------------------------------------------- prove
+    def prove_reqs(count, in_vals, out_vals):
+        """`count` distinct prove requests (in_witnesses, out_witnesses,
+        inputs, outputs) of the given values."""
+        reqs = []
+        for _ in range(count):
+            ins, inw = tok.tokens_with_witness(in_vals, "USD", pp.ped_params, rng)
+            outs, outw = tok.tokens_with_witness(out_vals, "USD", pp.ped_params, rng)
+            reqs.append((inw, outw, ins, outs))
+        return reqs
+
+    t0 = time.perf_counter()
+    preq_block = prove_reqs(BLOCK_TXS, [100, 55], [120, 35])
+    preq_batch = prove_reqs(BATCH_TXS, [100, 55], [120, 35])
+    preq_wf = prove_reqs(BLOCK_TXS, [100], [100])
+    t_reqs = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    prover_for(pp, device="cuda")  # the window tables, built once
+    t_tables = time.perf_counter() - t0
+
+    def prove(reqs):
+        return tr.TransferProver.batch(reqs, pp, rng=rng, min_batch=1, device="cuda")
+
+    # stage wrapper of each kernel held against its plain version below
+    prove_capture = {"g1_msm_select": "g1_msm_select_rows", "g1_add": "g1_add_rows",
+                     "gt_product_k2": "gt_product_rows"}
+
+    def prove_counted(reqs, expect):
+        """One prove with every count set to 0 just before it and read just
+        after, recording the inputs of the select multiexps, the add and
+        the GT product."""
+        captured = {name: [] for name in prove_capture}
+        saved = {name: getattr(st, fn) for name, fn in prove_capture.items()}
+
+        def recording(name):
+            fn = saved[name]
+
+            def wrapper(*a):
+                captured[name].append(tuple(x.clone() for x in a))
+                return fn(*a)
+            return wrapper
+
+        for name, fn in prove_capture.items():
+            setattr(st, fn, recording(name))
+        for k in _build.ALL_KERNELS:
+            k.launches = 0
+        try:
+            t = time.perf_counter()
+            proofs = prove(reqs)
+            wall = time.perf_counter() - t
+        finally:
+            for name, fn in prove_capture.items():
+                setattr(st, fn, saved[name])
+        counts = {k.name: k.launches for k in _build.ALL_KERNELS}
+        if counts != expect:
+            fail(f"a {len(reqs)}-tx prove launched {counts}, expected {expect}")
+        return proofs, wall, counts, captured
+
+    proofs_block, t_pblock, launches_p, pin_block = prove_counted(preq_block, PROVE_LAUNCHES)
+    proofs_batch, t_pbatch, launches_pb, pin_batch = prove_counted(preq_batch, PROVE_LAUNCHES)
+    proofs_wf, t_pwf, launches_pwf, _ = prove_counted(preq_wf, PROVE_WF_LAUNCHES)
+
+    # acceptance: the host verifier on every proof of the 64-tx groups,
+    # the batched verifier on the card on all of them
+    t = time.perf_counter()
+    for reqs, proofs in ((preq_block, proofs_block), (preq_wf, proofs_wf)):
+        for (_, _, ins, outs), raw in zip(reqs, proofs):
+            try:
+                tr.TransferVerifier(ins, outs, pp).verify(raw)
+            except Exception as exc:  # noqa: BLE001
+                fail(f"the host verifier rejects a proof made on the card: {exc}")
+    t_phost = time.perf_counter() - t
+
+    def bump_wf(raw):
+        p = tr.TransferProof.from_bytes(raw)
+        w = wfm.TransferWF.from_bytes(p.wf)
+        w.sum_resp = (w.sum_resp + 1) % hm.R
+        return tr.TransferProof(w.to_bytes(), p.range_correctness).to_bytes()
+
+    planted = [(preq_block[0], bump_wf(proofs_block[0])),
+               (preq_block[1], edit_range(proofs_block[1], bump_value)),
+               (preq_wf[0], bump_wf(proofs_wf[0]))]
+    for (_, _, ins, outs), raw in planted:
+        try:
+            tr.TransferVerifier(ins, outs, pp).verify(raw)
+        except Exception:  # noqa: BLE001
+            continue
+        fail("the host verifier accepts a tampered proof")
+
+    def as_txs(reqs, proofs):
+        return [(r[2], r[3], raw) for r, raw in zip(reqs, proofs)]
+
+    t = time.perf_counter()
+    got = verifier.verify(as_txs([q for q, _ in planted[:2]], [raw for _, raw in planted[:2]])
+                          + as_txs(preq_batch, proofs_batch))
+    t_pverify = time.perf_counter() - t
+    if got.tolist() != [False, False] + [True] * BATCH_TXS:
+        fail(f"batched verify of the {BATCH_TXS} proofs made on the card: "
+             f"{int((~got[2:]).sum())} rejected, planted rows {got[:2].tolist()}")
+    if verifier.verify(as_txs(preq_block, proofs_block)).tolist() != [True] * BLOCK_TXS:
+        fail("the batched verifier rejects a proof of the 64-tx group")
+    got = verifier.verify(as_txs(preq_wf[:1], [planted[2][1]]) + as_txs(preq_wf, proofs_wf))
+    if got.tolist() != [False] + [True] * BLOCK_TXS:
+        fail("1-in/1-out proofs made on the card: batched verdicts are wrong")
+    # the same group and seed proved by the plain versions on the CPU
+    small, seed = prove_reqs(2, [100, 55], [120, 35]), rng.getrandbits(64)
+    t = time.perf_counter()
+    on_card = tr.TransferProver.batch(small, pp, rng=random.Random(seed), min_batch=1,
+                                      device="cuda")
+    on_cpu = tr.TransferProver.batch(small, pp, rng=random.Random(seed), min_batch=1,
+                                     device="cpu")
+    t_cpu = time.perf_counter() - t
+    if on_card != on_cpu:
+        fail("proofs made on the card differ from the plain versions' on the CPU")
+    say("prove", f"made {BLOCK_TXS}+{BATCH_TXS} 2-in/2-out and {BLOCK_TXS} 1-in/1-out prove "
+        f"requests in {t_reqs:.1f} s, prover tables {t_tables:.1f} s; first prove: "
+        f"{BLOCK_TXS}-tx {t_pblock * 1e3:.1f} ms, {BATCH_TXS}-tx {t_pbatch * 1e3:.1f} ms, "
+        f"1-in/1-out {BLOCK_TXS}-tx {t_pwf * 1e3:.1f} ms; the host verifier accepts all "
+        f"{2 * BLOCK_TXS} of the 64-tx groups ({t_phost:.1f} s), the batched verifier all "
+        f"{BATCH_TXS} of the backlog ({t_pverify * 1e3:.1f} ms) and the 64-tx groups; a bumped "
+        f"WF response and a bumped membership response are rejected by both; 2 txs proved on "
+        f"the card and by the plain versions on the CPU from one seed: byte-identical "
+        f"({t_cpu:.1f} s); launches a 2-in/2-out prove {launches_p}, a 1-in/1-out prove "
+        f"{ {k: v for k, v in launches_pwf.items() if v} } [{card}]")
+
+    # the kernels of the prove that the verify did not run, on the prove's
+    # own inputs: held against their plain versions at the block's rows,
+    # timed at both sizes
+    plains = {"g1_msm_select": st.g1_msm_select_plain,
+              "g1_add": lambda a, b: st.g1_addsub_plain(a, b, False),
+              "gt_product_k2": st.gt_product_plain}
+
+    def prove_bound(name, a):
+        rows = a[-1].shape[0]
+        if name == "g1_msm_select":
+            table, scal = a
+            nb = scal.shape[1]
+            ks = lb.batch_words_to_ints(scal)
+            return bound_ms(msm_products(ks[r * nb:(r + 1) * nb] for r in range(rows)),
+                            table.numel() * 4 + rows * (nb * SCALAR_BYTES + POINT_BYTES))
+        if name == "g1_add":
+            fin = sum(1 for x, y in zip(finite(a[0]), finite(a[1])) if x and y)
+            return bound_ms(fin * FP_MULS_ADD, rows * 3 * POINT_BYTES)
+        return bound_of("gt_product", a)
+
+    prove_stats = {}
+    for name, wrapper in prove_capture.items():
+        fn = getattr(st, wrapper)
+        calls = []
+        for ab, abig in zip(pin_block[name], pin_batch[name]):
+            got = fn(*ab)
+            want, p_ms = plain_timed(lambda: plains[name](*ab))
+            if not torch.equal(got, want):
+                fail(f"{name} disagrees with its plain version on the prove's inputs "
+                     f"(max |err| {max_abs_err(got, want)})")
+            big = fn(*abig)
+            # at the batch's rows against the gather kernel (itself held
+            # against the plain version above) or the plain version
+            ref = st.g1_msm_rows(*abig) if name == "g1_msm_select" else plains[name](*abig)
+            if not torch.equal(big, ref):
+                fail(f"{name} at the batch's rows disagrees with its reference")
+            reps = 10 if name == "g1_msm_select" else 50
+            calls.append({
+                "rows_block": ab[-1].shape[0], "rows_batch": abig[-1].shape[0],
+                "nbases": ab[1].shape[1] if name == "g1_msm_select" else None,
+                "ms_block": timed(lambda: fn(*ab), reps),
+                "ms_batch": timed(lambda: fn(*abig), reps),
+                "plain_ms": p_ms, "max_abs_err": max_abs_err(got, want),
+                "bound_block": prove_bound(name, ab), "bound_batch": prove_bound(name, abig),
+            })
+        prove_stats[name] = calls
+    # the select kernel on zero and on random scalars, beside the gather,
+    # at the WF multiexp's rows (the ped3 table)
+    zero_random = {}
+    for tag, (table, scal) in (("block", pin_block["g1_msm_select"][0]),
+                               ("batch", pin_batch["g1_msm_select"][0])):
+        zero = torch.zeros_like(scal)
+        zero_random[tag] = {
+            "rows": scal.shape[0],
+            "select_zero": timed(lambda: st.g1_msm_select_rows(table, zero), 10),
+            "select_random": timed(lambda: st.g1_msm_select_rows(table, scal), 10),
+            "gather_zero": timed(lambda: st.g1_msm_rows(table, zero), 10),
+            "gather_random": timed(lambda: st.g1_msm_rows(table, scal), 10),
+        }
+    say("prove-kernels", "; ".join(
+        f"{name} " + ", ".join(
+            f"{c['rows_block']}/{c['rows_batch']} rows"
+            + (f" x{c['nbases']}" if c["nbases"] else "")
+            + f" {c['ms_block']:.3f}/{c['ms_batch']:.3f} ms (bound {c['bound_block'][0]:.4f}/"
+            f"{c['bound_batch'][0]:.4f}, plain {c['plain_ms']:.0f})" for c in calls)
+        for name, calls in prove_stats.items()) + "; each equals its plain version exactly on "
+        "the 64-tx prove's inputs; g1_msm_select ms on zero / random scalars, gather beside it: "
+        + ", ".join(f"{v['rows']} rows select {v['select_zero']:.3f} / {v['select_random']:.3f}, "
+                    f"gather {v['gather_zero']:.3f} / {v['gather_random']:.3f}"
+                    for v in zero_random.values()) + f" [{card}]")
+
+    prove_medians = medians("2-in/2-out", zip((preq_block, preq_batch), PROVE_REPS), run=prove,
+                            what="prove")
+    prove_medians_wf = medians("1-in/1-out", [(preq_wf, PROVE_REPS[0])], run=prove, what="prove")
+    prove_spans = ("batch.prove", "batch.prove.wf", "batch.prove.range", "batch.prove.draw",
+                   "batch.prove.device", "batch.prove.decode", "batch.prove.finish")
+    names = breakdown("2-in/2-out", lambda: prove(preq_batch), _build.PROVE_KERNELS, prove_spans,
+                      f"{BATCH_TXS}-tx prove")
+    want_names = sorted(n for n, c in PROVE_LAUNCHES.items() for _ in range(c))
+    if sorted(names) != want_names:
+        fail(f"profiled 2-in/2-out prove launched {sorted(names)}")
+
+    # ---------------------------------------------------------------- PS
+    rp = pp.range_params
+    signer = pssign.SignVerifier(rp.sign_pk, rp.Q)
+    nvals = len(rp.signed_values)
+    ps_msgs = [[i % nvals] for i in range(PS_SIGS)]
+    ps_sigs = [signer.randomize(rp.signed_values[i % nvals], rng) for i in range(PS_SIGS)]
+    # planted: a wrong message, R and S swapped, another value's
+    # signature, a wrong message count, no signature
+    ps_msgs[3] = [(ps_msgs[3][0] + 1) % nvals]
+    ps_sigs[10] = pssign.Signature(ps_sigs[10].S, ps_sigs[10].R)
+    ps_sigs[20] = ps_sigs[21]
+    ps_msgs[30] = [1, 2]
+    ps_sigs[40] = None
+    ps_bad = [3, 10, 20, 30, 40]
+    ps_host = []
+    for m, sg in zip(ps_msgs, ps_sigs):
+        try:
+            signer.verify(m, sg)
+            ps_host.append(True)
+        except Exception:  # noqa: BLE001
+            ps_host.append(False)
+    if [i for i, ok in enumerate(ps_host) if not ok] != ps_bad:
+        fail("the host PS verifier does not reject exactly the planted rows")
+    ps_verifier = BatchedPSVerifier(rp.sign_pk, rp.Q, device="cuda")
+    for k in _build.ALL_KERNELS:
+        k.launches = 0
+    t = time.perf_counter()
+    ps_got = ps_verifier.verify(ps_msgs, ps_sigs)
+    t_ps = time.perf_counter() - t
+    launches_ps = {k.name: k.launches for k in _build.ALL_KERNELS}
+    if launches_ps != PS_LAUNCHES:
+        fail(f"a PS verify launched {launches_ps}, expected {PS_LAUNCHES}")
+    if ps_got.tolist() != ps_host:
+        fail(f"BatchedPSVerifier verdicts differ from the host's: {ps_got.tolist()}")
+    ps_medians = medians("PS", [(ps_sigs, PROVE_REPS[0])],
+                         run=lambda sigs: ps_verifier.verify(ps_msgs, sigs), unit="sig")
+    say("ps", f"{PS_SIGS} signatures (the signed set, randomised; planted rows {ps_bad}: a "
+        f"wrong message, R and S swapped, another value's signature, a wrong message count, "
+        f"no signature): verdicts equal the host's; first verify {t_ps * 1e3:.1f} ms; launches "
+        f"{ {k: v for k, v in launches_ps.items() if v} } [{card}]")
 
     # ---------------------------------------------------------------- report
     kernels = []
@@ -708,6 +1001,7 @@ def main() -> int:
             "source": f"fabric_token_sdk_tpu_torch/csrc/{k.source}",
             "replaces": REPLACES[k.name], "launches": launches[k.name],
             "launches_2in2out_verify": launches_r[k.name],
+            "launches_2in2out_prove": launches_p[k.name],
             "max_abs_err": err, "ms": ms, "plain_ms": p_ms,
             "bound_ms": b_ms, "bound_by": b_by, "library_ms": None,
             "rows": big, "ms_at_256_rows": stats[k.name][small][0],
@@ -721,13 +1015,43 @@ def main() -> int:
             "source": f"fabric_token_sdk_tpu_torch/csrc/{k.source}",
             "replaces": REPLACES[name], "launches": launches_r[name],
             "launches_batch_verify": launches_rb[name],
+            "launches_2in2out_prove": launches_p[name], "launches_ps_verify": launches_ps[name],
             "max_abs_err": v["max_abs_err"], "ms": v["ms_batch"], "plain_ms": v["plain_ms"],
             "bound_ms": v["bound_batch"][0], "bound_by": v["bound_batch"][1], "library_ms": None,
             "rows": v["rows_batch"], "ms_block": v["ms_block"], "rows_block": v["rows_block"],
             "bound_ms_block": v["bound_block"][0], "plain_rows": v["rows_block"],
         })
-    print(json.dumps({"range_verify_median_ms": {str(k): v * 1e3 for k, v in range_medians.items()},
-                      "build_s": t_build}), flush=True)
+    # the prove path's own rows: the select multiexp (its WF call, 3 bases,
+    # stands for it; every call is listed), the add, the K = 2 product
+    sources = {"g1_msm_select": "g1_msm.cu", "g1_add": "g1_addsub.cu",
+               "gt_product_k2": "gt_product.cu"}
+    kernel_of = {"g1_msm_select": "g1_msm_select", "g1_add": "g1_addsub",
+                 "gt_product_k2": "gt_product"}
+    for name, calls in prove_stats.items():
+        c = calls[0]
+        row = {
+            "name": name, "route": "cuda",
+            "source": f"fabric_token_sdk_tpu_torch/csrc/{sources[name]}",
+            "replaces": REPLACES[name], "launches": launches_p[kernel_of[name]],
+            "launches_batch_prove": launches_pb[kernel_of[name]],
+            "max_abs_err": max(x["max_abs_err"] for x in calls), "ms": c["ms_batch"],
+            "plain_ms": c["plain_ms"], "bound_ms": c["bound_batch"][0],
+            "bound_by": c["bound_batch"][1], "library_ms": None, "rows": c["rows_batch"],
+            "ms_block": c["ms_block"], "rows_block": c["rows_block"],
+            "bound_ms_block": c["bound_block"][0], "plain_rows": c["rows_block"],
+            "calls": [{k: (v[0] if k.startswith("bound") else v) for k, v in x.items()}
+                      for x in calls],
+        }
+        if name == "g1_msm_select":
+            row["launches_1in1out_prove"] = launches_pwf[name]
+            row["zero_vs_random_scalars_ms"] = zero_random
+        kernels.append(row)
+    print(json.dumps({
+        "range_verify_median_ms": {str(k): v * 1e3 for k, v in range_medians.items()},
+        "prove_median_ms": {str(k): v * 1e3 for k, v in prove_medians.items()},
+        "prove_1in1out_median_ms": {str(k): v * 1e3 for k, v in prove_medians_wf.items()},
+        "ps_verify_median_ms": {str(k): v * 1e3 for k, v in ps_medians.items()},
+        "build_s": t_build}), flush=True)
     print(card, flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -15,6 +15,9 @@ as 4-leg pairing products (`BatchedMembershipVerifier`: G2 ladder, G2
 add and to-affine, G1 to-affine, Miller loop, GT product, final
 exponentiation), and the equality sigma proof on the G1 kernels. A
 block of mixed shapes raises `NotImplementedError`.
+
+`BatchedPSVerifier` checks Pointcheval-Sanders signatures the same way,
+as 2-leg pairing products.
 """
 
 from __future__ import annotations
@@ -25,7 +28,7 @@ from typing import List, Optional, Sequence, Tuple
 import numpy as np
 import torch
 
-from . import hostmath as hm, sigproof
+from . import hostmath as hm, pssign, sigproof
 from .rangeproof import RangeProof, RangeVerifier
 from .setup import PublicParams
 from .transfer import TransferProof
@@ -238,6 +241,58 @@ class BatchedMembershipVerifier:
                     continue
                 mv = sigproof.MembershipVerifier(com, self.P, self.Q, self.pk, self.ped2)
                 out[i] = mv._challenge(gt_host[i], com_host[i], p.signature) == p.challenge
+        return out
+
+
+class BatchedPSVerifier:
+    """Verifies B Pointcheval-Sanders signatures on l-message vectors:
+    e(-S, Q) * e(R, H) == 1 with H = PK0 + sum PK_i^{m_i} + PK_{l+1}^{hash}
+    built on the card (G2 ladder, a host-folded tree of G2 adds, to-affine)
+    and the two legs through the staged K = 2 pairing product. Rows that
+    do not parse (wrong message count, no signature) verify False."""
+
+    def __init__(self, pk, Q, device=None):
+        self.pk_host = list(pk)
+        self.Q_host = Q
+        self.device = resolve_device(device)
+        self.pk = _upload(cv2.encode_points(self.pk_host), self.device)  # (l+2, 3, 2, 8)
+        self.Q_aff = _upload(pr.encode_g2([Q])[0], self.device)  # (2, 2, 8)
+
+    @_spanned("batch.ps.verify")
+    def verify(self, messages_rows: Sequence[Sequence[int]], sigs) -> np.ndarray:
+        """-> bool array (B,). Raises nothing; invalid rows are False."""
+        B = len(sigs)
+        if B == 0:
+            return np.zeros(0, dtype=bool)
+        mx.counter("batch.ps.sigs").inc(B)
+        l = len(self.pk_host) - 2
+        k = l + 1
+        scal = np.zeros((B, k, lb.NWORDS), dtype=np.int32)
+        negS, R = [], []
+        malformed = np.zeros(B, dtype=bool)
+        for i, (msgs, sig) in enumerate(zip(messages_rows, sigs)):
+            try:
+                if len(msgs) != l:
+                    raise ValueError("PS batch: message count mismatch")
+                scal[i] = cv.encode_scalars(list(msgs) + [pssign.hash_messages(msgs)])
+                s_neg, r = hm.g1_neg(sig.S), sig.R
+                negS.append(s_neg)
+                R.append(r)
+            except Exception:
+                malformed[i] = True
+                negS.append(hm.G1_GEN)  # placeholder; the row is forced False
+                R.append(hm.G1_GEN)
+        dev = self.device
+        shape = tuple(self.pk.shape[1:])
+        bases = self.pk[1:].unsqueeze(0).expand((B, k) + shape).reshape((B * k,) + shape)
+        terms = st.g2_mul_rows(bases.contiguous(), _upload(scal.reshape(B * k, lb.NWORDS), dev))
+        acc = st.g2_tree_sum_rows(terms.reshape((B, k) + shape))
+        acc = st.g2_add_rows(acc.contiguous(), self.pk[0].expand_as(acc).contiguous())
+        H_aff = st.g2_to_affine_rows(acc)  # (B, 2, 2, 8)
+        Ps = _upload(np.stack([pr.encode_g1(negS), pr.encode_g1(R)], axis=1), dev)
+        Qs = torch.stack([self.Q_aff.expand_as(H_aff), H_aff], dim=1)  # (B, 2, 2, 2, 8)
+        out = pr.gt_is_one_host(pr.pairing_product_staged(Ps, Qs).cpu().numpy())
+        out[malformed] = False
         return out
 
 

@@ -1,4 +1,5 @@
-"""Pedersen vector commitments: the host half.
+"""Pedersen vector commitments: the host path and the batched one on
+the card.
 
 Reference: `crypto/common/zkproof.go` ComputePedersenCommitment and the
 token commitment computation in `crypto/token/token.go:64-76` (token data =
@@ -9,7 +10,10 @@ from __future__ import annotations
 
 from typing import Sequence
 
+import torch
+
 from . import hostmath as hm
+from ..ops import curve as cv, limbs as lb, stages as st
 
 
 def commit(openings: Sequence[int], bases: Sequence, curve=None):
@@ -17,6 +21,51 @@ def commit(openings: Sequence[int], bases: Sequence, curve=None):
     if len(openings) != len(bases):
         raise ValueError(f"pedersen commit: {len(openings)} openings vs {len(bases)} bases")
     return hm.g1_multiexp(list(bases), [o % hm.R for o in openings])
+
+
+class BatchedPedersen(torch.nn.Module):
+    """Batched fixed-base committer: B commitments over the same bases in
+    one `g1_msm_select` launch (counterpart of the JAX package's
+    `crypto/pedersen.py:BatchedPedersen`, the commit engine of the batched
+    transfer prover). The openings are secret, so every method goes
+    through the select form of the multiexp, never the gather. The
+    window table is a submodule buffer: `.to(device)` moves it, and the
+    commitments are computed where it lies."""
+
+    def __init__(self, bases: Sequence):
+        super().__init__()
+        self.bases = list(bases)
+        self.table = cv.FixedBaseTable(self.bases)
+
+    @property
+    def device(self) -> torch.device:
+        return self.table.table.device
+
+    def commit_rows(self, scalars: torch.Tensor) -> torch.Tensor:
+        """Canonical scalar words (N, nbases, 8) on the table's device ->
+        (N, 3, 8) Jacobian words there."""
+        return st.g1_msm_select_rows(self.table.table, scalars)
+
+    def commit_ints(self, openings_rows: Sequence[Sequence[int]]):
+        """Host int rows -> (host points, Jacobian words on the device):
+        one encode and upload, one launch, one copy back and host decode."""
+        rows = list(openings_rows)
+        flat = cv.encode_scalars([s for row in rows for s in row])
+        scalars = torch.from_numpy(flat.reshape(len(rows), len(self.bases), lb.NWORDS))
+        jac = self.commit_rows(scalars.to(self.device))
+        return cv.decode_points(jac.cpu().numpy()), jac
+
+    def commit_batch(self, openings_rows: Sequence[Sequence[int]]) -> list:
+        """Rows of per-base openings -> list of host G1 points."""
+        return self.commit_ints(openings_rows)[0]
+
+    def commit_device(self, scalars: torch.Tensor) -> torch.Tensor:
+        """Scalars (..., nbases, 8) -> points (..., 3, 8): the reference's
+        fused entry point, here the same single launch over the flattened
+        leading axes."""
+        lead = tuple(scalars.shape[:-2])
+        flat = scalars.reshape((-1,) + tuple(scalars.shape[-2:])).contiguous()
+        return self.commit_rows(flat).reshape(lead + (3, lb.NWORDS))
 
 
 def token_commitment(token_type: str, value: int, bf: int, ped_params: Sequence):

@@ -7,6 +7,7 @@ range proof is skipped for 1-in-1-out ownership transfers) and
 
 from __future__ import annotations
 
+import os
 from dataclasses import dataclass
 from typing import List, Optional, Sequence
 
@@ -15,6 +16,13 @@ from .setup import PublicParams
 from .serialization import guard, dumps, loads
 from .token import TokenDataWitness
 from ..utils import metrics as mx
+
+
+def _prove_min_batch() -> int:
+    try:
+        return max(1, int(os.environ.get("FTS_PROVE_MIN_BATCH", "2")))
+    except ValueError:
+        return 2
 
 
 @dataclass
@@ -87,6 +95,57 @@ class TransferProver:
                 wf=self.wf_prover.prove(),
                 range_correctness=self.range_prover.prove() if self.range_prover else None,
             ).to_bytes()
+
+    @classmethod
+    def batch(
+        cls,
+        requests: Sequence[tuple],
+        pp: PublicParams,
+        rng=None,
+        min_batch: Optional[int] = None,
+        prover=None,
+        device=None,
+    ) -> List[bytes]:
+        """Prove many transfers, routing each same-shape group of at least
+        `min_batch` (default FTS_PROVE_MIN_BATCH=2) through the batched
+        prover on the card (`crypto/batch_prove.py`), smaller groups
+        through the host prover. Groups run in sorted shape order on the
+        caller's rng, so the bytes are deterministic under a fixed seed
+        and equal the JAX package's.
+
+        Unlike the reference, a device failure is not retried on the
+        host: the exception propagates, so a fault of the card is never
+        turned into host-proved output. `device` picks the card (None:
+        CUDA, raising where there is none) for the prover built here;
+        `prover` supplies one instead.
+
+        `requests`: tuples of `(in_witnesses, out_witnesses, inputs,
+        outputs)`, the host constructor's arguments. Returns proof bytes
+        in request order, in the wire format of `prove()`.
+        """
+        reqs = list(requests)
+        if not reqs:
+            return []
+        if min_batch is None:
+            min_batch = _prove_min_batch()
+        groups = {}
+        for idx, r in enumerate(reqs):
+            groups.setdefault((len(r[2]), len(r[3])), []).append(idx)
+        out: List[Optional[bytes]] = [None] * len(reqs)
+        for _, indices in sorted(groups.items()):
+            if len(indices) < min_batch:
+                for i in indices:
+                    iw, ow, inputs, outputs = reqs[i]
+                    out[i] = cls(iw, ow, inputs, outputs, pp, rng).prove()
+                    mx.counter("batch.prove.host").inc()
+                continue
+            if prover is None:
+                from .batch_prove import prover_for
+
+                prover = prover_for(pp, device=device)
+            for i, proof in zip(indices, prover.prove([reqs[i] for i in indices], rng)):
+                out[i] = proof
+        return out
 
 
 class TransferVerifier:

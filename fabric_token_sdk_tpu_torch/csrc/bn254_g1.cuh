@@ -61,7 +61,8 @@ __device__ __forceinline__ G1 g1_double(const G1& p) {
 // add-2007-bl with the reference's selects, in the reference's order:
 // P == Q -> double(P); P == -Q -> all-zero infinity; P at infinity -> Q;
 // Q at infinity -> P. The doubling is computed every call and selected,
-// so the instruction stream does not depend on the operands.
+// so the instruction stream does not depend on the operands (secret on
+// the prove path: S^r + P^sig_bf).
 __device__ __forceinline__ G1 g1_add(const G1& p, const G1& q) {
   Fp z1z1 = fp_sqr(p.z);
   Fp z2z2 = fp_sqr(q.z);

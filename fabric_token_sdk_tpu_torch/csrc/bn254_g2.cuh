@@ -57,7 +57,8 @@ FTS_NOINLINE __device__ G2 g2_double(const G2& p) {
 
 // add-2007-bl with the reference's selects, in the reference's order:
 // P == Q -> double(P); P == -Q -> all-zero infinity; P at infinity -> Q;
-// Q at infinity -> P. The doubling is computed every call and selected.
+// Q at infinity -> P. The doubling is computed every call and selected,
+// so no branch depends on the operands (secret on the prove path).
 FTS_NOINLINE __device__ G2 g2_add(const G2& p, const G2& q) {
   Fp2 z1z1 = fp2_sqr(p.z);
   Fp2 z2z2 = fp2_sqr(q.z);

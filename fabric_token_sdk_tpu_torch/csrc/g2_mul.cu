@@ -5,8 +5,9 @@
 // curve2.py:scalar_mul): 256 MSB-first steps over the canonical scalar,
 // each a doubling, an addition of Q and a select of the sum where the
 // bit is set: the same fixed add-and-select ladder as g1_mul.cu, over
-// Fp2. The scalars of the verify path are public proof responses; the
-// ladder keeps the reference's fixed instruction stream all the same.
+// Fp2. The scalars of the verify path are public proof responses, those
+// of the prove path (the membership randomness rho_v, rho_h) secret: the
+// ladder's instruction stream and memory traffic depend on neither.
 //
 // Layout: points (n, 3, 2, 8) Montgomery Jacobian in [0, 2p); scalars
 // (n, 8) canonical words; out (n, 3, 2, 8) canonical Montgomery.

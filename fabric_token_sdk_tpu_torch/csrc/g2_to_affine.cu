@@ -4,6 +4,8 @@
 // stages.py:_g2_to_affine_tile = curve2.to_affine_device): one Fp2
 // inversion of Z (a norm, one Fermat inversion in Fp, two products),
 // then x = X / Z^2, y = Y / Z^3. Infinity (Z = 0) comes back as (0, 0).
+// The Fermat chain's exponent p - 2 is public and its selects are masks,
+// so nothing branches on the (on the prove path, secret-derived) point.
 //
 // Layout: points (n, 3, 2, 8) Montgomery Jacobian in [0, 2p); out
 // (n, 2, 2, 8) canonical Montgomery.

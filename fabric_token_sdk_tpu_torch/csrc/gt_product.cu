@@ -5,7 +5,9 @@
 // (fabric_token_sdk_tpu/ops/pairing.py:_product_rows): the K legs of a
 // pairing-product row multiplied together before the shared final
 // exponentiation. The product is a unique field element, so the order
-// (here left to right, K - 1 products) does not change it.
+// (here left to right, K - 1 products) does not change it. The loop runs
+// over the public K only: on the prove path (K = 2) the values derive
+// from secrets, and no branch or address depends on them.
 //
 // Layout: f (n, k, 6, 2, 8) Montgomery Fp12 in [0, 2p); out (n, 6, 2, 8)
 // canonical Montgomery.

@@ -13,7 +13,9 @@
 //
 // The bits of 6u+2 are a public constant, the same for every thread, so
 // the add step runs only on set bits (a uniform branch); the reference
-// computes it every step and selects, which gives the same values.
+// computes it every step and selects, which gives the same values. No
+// other branch and no address depends on the legs, which derive from
+// secrets on the prove path (R' = R^r, t = PK1^rho_v + PK2^rho_h).
 //
 // Layout: P (n, 2, 8) and Q (n, 2, 2, 8) Montgomery affine in [0, 2p);
 // out (n, 6, 2, 8) canonical Montgomery Fp12.

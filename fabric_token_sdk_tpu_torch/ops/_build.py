@@ -129,6 +129,8 @@ class Kernel:
 _PTR, _INT = ctypes.c_void_p, ctypes.c_int
 
 G1_MSM = Kernel("g1_msm", "g1_msm.cu", "fts_g1_msm", [_PTR, _PTR, _PTR, _INT, _INT])
+G1_MSM_SELECT = Kernel("g1_msm_select", "g1_msm.cu", "fts_g1_msm_select",
+                       [_PTR, _PTR, _PTR, _INT, _INT])
 G1_MUL = Kernel("g1_mul", "g1_mul.cu", "fts_g1_mul", [_PTR, _PTR, _PTR, _INT])
 G1_ADDSUB = Kernel("g1_addsub", "g1_addsub.cu", "fts_g1_addsub", [_PTR, _PTR, _PTR, _INT, _INT])
 FP_OPS = Kernel("fp_ops", "fp_ops.cu", "fts_fp_ops", [_PTR, _PTR, _PTR, _INT])
@@ -147,6 +149,14 @@ PATH_KERNELS = (
     MILLER, GT_PRODUCT, FINAL_EXP,
 )
 WF_KERNELS = PATH_KERNELS[:3]
+# the kernels of the prove path: every fixed-base multiexp of the prover
+# takes the select form (its openings are secret); the 1-in/1-out prove
+# runs the first alone, a transfer with a range proof all nine
+PROVE_KERNELS = (
+    G1_MSM_SELECT, G1_MUL, G1_ADDSUB, G2_MUL, G2_ADD, G2_TO_AFFINE, MILLER, GT_PRODUCT,
+    FINAL_EXP,
+)
+ALL_KERNELS = PATH_KERNELS + (G1_MSM_SELECT,)
 
 
 def check_cuda_tensor(name: str, t: torch.Tensor, shape) -> None:

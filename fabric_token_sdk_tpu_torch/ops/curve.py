@@ -135,18 +135,29 @@ def scalar_mul(p: Half3, scalars: torch.Tensor) -> Half3:
     return acc
 
 
-def msm(table: torch.Tensor, scalars: torch.Tensor) -> Half3:
+def msm(table: torch.Tensor, scalars: torch.Tensor, select: bool = False) -> Half3:
     """Fixed-base multiexp: sum_b scalars[:, b] * base_b, by adding the
-    selected window entries in the reference's order (base-major,
-    4-bit windows LSB-first). table (nb*64, 16, 3, 8); scalars (N, nb, 8)."""
+    window entries in the reference's order (base-major, 4-bit windows
+    LSB-first). table (nb*64, 16, 3, 8); scalars (N, nb, 8).
+
+    Each window's entry is gathered by the digit, or with `select` picked
+    as the reference's `msm_select` does for secret scalars: the 16-way
+    one-hot of the digit times all 16 entries, summed, in exact integer
+    arithmetic. Both give the same points."""
     n, nbases = scalars.shape[0], scalars.shape[1]
     tab = words_to_half(table)  # (16, nb*64, 16, 3)
     k = scalars.to(torch.int64) & 0xFFFFFFFF
+    entries = torch.arange(WINDOW_SIZE, device=tab.device)
     acc = infinity_half(tab.new_zeros((tab.shape[0], n)))
     for b in range(nbases):
         for w in range(DIGITS_PER_SCALAR):
             digit = (k[:, b, w // 8] >> (WINDOW_BITS * (w % 8))) & (WINDOW_SIZE - 1)
-            sel = tab[:, b * DIGITS_PER_SCALAR + w][:, digit]  # (16, N, 3)
+            window = tab[:, b * DIGITS_PER_SCALAR + w]  # (16, 16 entries, 3)
+            if select:
+                onehot = (digit[:, None] == entries).to(tab.dtype)  # (N, 16)
+                sel = (onehot[None, :, :, None] * window[:, None]).sum(dim=2)  # (16, N, 3)
+            else:
+                sel = window[:, digit]
             acc = add(acc, (sel[..., 0], sel[..., 1], sel[..., 2]))
     return acc
 

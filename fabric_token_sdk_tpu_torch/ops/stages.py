@@ -1,4 +1,4 @@
-"""Row-batched stages of the verify plane: CUDA kernels and plain versions.
+"""Row-batched stages of the verify and prove planes: CUDA kernels and plain versions.
 
 Counterpart of `fabric_token_sdk_tpu/ops/stages.py`. Each `g1_*_rows`
 function takes int32 tensors of flat rows and issues ONE launch over all
@@ -24,8 +24,8 @@ import torch
 
 from . import curve as cv, curve2 as cv2, limbs as lb, pairing as pr
 from ._build import (
-    FINAL_EXP, G1_ADDSUB, G1_MSM, G1_MUL, G1_TO_AFFINE, G2_ADD, G2_MUL, G2_TO_AFFINE,
-    GT_PRODUCT, MILLER, check_cuda_tensor,
+    FINAL_EXP, G1_ADDSUB, G1_MSM, G1_MSM_SELECT, G1_MUL, G1_TO_AFFINE, G2_ADD, G2_MUL,
+    G2_TO_AFFINE, GT_PRODUCT, MILLER, check_cuda_tensor,
 )
 from .field import FP, half_to_words, words_to_half
 from ..utils import metrics as mx
@@ -57,21 +57,40 @@ def g1_msm_plain(table: torch.Tensor, scalars: torch.Tensor) -> torch.Tensor:
     return cv.from_half3(cv.msm(table, scalars))
 
 
-def g1_msm_rows(table: torch.Tensor, scalars: torch.Tensor) -> torch.Tensor:
-    """(N, nbases, 8) canonical scalars x fixed-base table -> (N, 3, 8)."""
+def g1_msm_select_plain(table: torch.Tensor, scalars: torch.Tensor) -> torch.Tensor:
+    """Plain version of the g1_msm_select kernel: the one-hot select."""
+    return cv.from_half3(cv.msm(table, scalars, select=True))
+
+
+def _msm_rows(kernel, plain, table: torch.Tensor, scalars: torch.Tensor) -> torch.Tensor:
     nbases = scalars.shape[1]
     if table.shape[0] != nbases * cv.DIGITS_PER_SCALAR:
-        raise ValueError(f"g1_msm: table of {table.shape[0] // cv.DIGITS_PER_SCALAR} "
+        raise ValueError(f"{kernel.name}: table of {table.shape[0] // cv.DIGITS_PER_SCALAR} "
                          f"bases for {nbases} scalars a row")
-    if not _route("g1_msm", table, scalars):
-        return g1_msm_plain(table, scalars)
+    if not _route(kernel.name, table, scalars):
+        return plain(table, scalars)
     n = scalars.shape[0]
-    check_cuda_tensor("g1_msm table", table, (nbases * cv.DIGITS_PER_SCALAR, cv.WINDOW_SIZE, 3, lb.NWORDS))
-    check_cuda_tensor("g1_msm scalars", scalars, (n, nbases, lb.NWORDS))
+    check_cuda_tensor(f"{kernel.name} table", table,
+                      (nbases * cv.DIGITS_PER_SCALAR, cv.WINDOW_SIZE, 3, lb.NWORDS))
+    check_cuda_tensor(f"{kernel.name} scalars", scalars, (n, nbases, lb.NWORDS))
     out = torch.empty((n, 3, lb.NWORDS), dtype=torch.int32, device=scalars.device)
-    with mx.span("stages.run", kernel="g1_msm", rows=n):
-        G1_MSM.launch(scalars.device, table.data_ptr(), scalars.data_ptr(), out.data_ptr(), n, nbases)
+    with mx.span("stages.run", kernel=kernel.name, rows=n):
+        kernel.launch(scalars.device, table.data_ptr(), scalars.data_ptr(), out.data_ptr(), n,
+                      nbases)
     return out
+
+
+def g1_msm_rows(table: torch.Tensor, scalars: torch.Tensor) -> torch.Tensor:
+    """(N, nbases, 8) canonical scalars x fixed-base table -> (N, 3, 8).
+    The window entry is gathered by the digit: public scalars only."""
+    return _msm_rows(G1_MSM, g1_msm_plain, table, scalars)
+
+
+def g1_msm_select_rows(table: torch.Tensor, scalars: torch.Tensor) -> torch.Tensor:
+    """As `g1_msm_rows`, for secret scalars: every window reads all 16
+    entries and keeps the digit's by a mask, so no load and no branch
+    depends on a scalar."""
+    return _msm_rows(G1_MSM_SELECT, g1_msm_select_plain, table, scalars)
 
 
 # ------------------------------------------------------------------ g1_mul

@@ -7,10 +7,14 @@ import random
 import subprocess
 import sys
 
+import numpy as np
 import pytest
+import torch
 
+from fabric_token_sdk_tpu.crypto import batch_prove as ref_bp
 from fabric_token_sdk_tpu.crypto import setup as ref_setup, token as ref_tok
 from fabric_token_sdk_tpu.crypto import transfer as ref_tr
+from fabric_token_sdk_tpu_torch.crypto import batch_prove as bp
 from fabric_token_sdk_tpu_torch.crypto import setup, token as tok, transfer as tr
 
 ROOT = os.path.join(os.path.dirname(__file__), "..")
@@ -59,6 +63,24 @@ def test_host_batch_verify_copy_agrees(params):
     specs = [_prove(tok, tr, pp, (3,), (3,), seed=s) for s in (6, 7)]
     specs.append((specs[0][0], specs[1][1], specs[0][2]))  # mismatched output
     assert tr.verify_transfer_proofs(specs, pp) == [True, True, False]
+
+
+def test_prover_state_carries_over_from_reference():
+    """The JAX batched prover's tables and encoded points, taken as numpy,
+    equal the port prover's own buffers built from the same parameters,
+    and load into it."""
+    ref_pp = ref_setup.setup(base=16, exponent=2, rng=random.Random(0xCA12))
+    pp = setup.setup(base=16, exponent=2, rng=random.Random(0xCA12))
+    ref = ref_bp.BatchedTransferProver(ref_pp)
+    arrays = {name: np.asarray(getattr(ref, name).table.flat) for name in ("ped3", "ped2", "pedP")}
+    arrays.update(pk=ref.pk_np, Q=ref.Q_np, sig_R=ref.sig_R_np, sig_S=ref.sig_S_np)
+    state = bp.prover_state_from_reference(arrays)
+    prover = bp.BatchedTransferProver(pp, device="cpu")
+    own = prover.state_dict()
+    assert sorted(state) == sorted(own)
+    for name, t in own.items():
+        assert torch.equal(state[name], t), name
+    prover.load_state_dict(state)
 
 
 def test_port_imports_no_jax_and_no_reference_package():

@@ -27,18 +27,19 @@ torch.set_num_threads(1)
 
 CSRC = os.path.join(os.path.dirname(__file__), "..", "fabric_token_sdk_tpu_torch", "csrc")
 _P, _I = ctypes.c_void_p, ctypes.c_int
-ENTRY = {
-    "fp_ops": ("host_fp_ops", [_P, _P, _P, _I]),
-    "g1_msm": ("host_g1_msm", [_P, _P, _P, _I, _I]),
-    "g1_mul": ("host_g1_mul", [_P, _P, _P, _I]),
-    "g1_addsub": ("host_g1_addsub", [_P, _P, _P, _I, _I]),
-    "g1_to_affine": ("host_g1_to_affine", [_P, _P, _I]),
-    "g2_mul": ("host_g2_mul", [_P, _P, _P, _I]),
-    "g2_add": ("host_g2_add", [_P, _P, _P, _I]),
-    "g2_to_affine": ("host_g2_to_affine", [_P, _P, _I]),
-    "miller": ("host_miller", [_P, _P, _P, _I]),
-    "gt_product": ("host_gt_product", [_P, _P, _I, _I]),
-    "final_exp": ("host_final_exp", [_P, _P, _I]),
+ENTRY = {  # name: (source in csrc/, symbol, argtypes)
+    "fp_ops": ("fp_ops", "host_fp_ops", [_P, _P, _P, _I]),
+    "g1_msm": ("g1_msm", "host_g1_msm", [_P, _P, _P, _I, _I]),
+    "g1_msm_select": ("g1_msm", "host_g1_msm_select", [_P, _P, _P, _I, _I]),
+    "g1_mul": ("g1_mul", "host_g1_mul", [_P, _P, _P, _I]),
+    "g1_addsub": ("g1_addsub", "host_g1_addsub", [_P, _P, _P, _I, _I]),
+    "g1_to_affine": ("g1_to_affine", "host_g1_to_affine", [_P, _P, _I]),
+    "g2_mul": ("g2_mul", "host_g2_mul", [_P, _P, _P, _I]),
+    "g2_add": ("g2_add", "host_g2_add", [_P, _P, _P, _I]),
+    "g2_to_affine": ("g2_to_affine", "host_g2_to_affine", [_P, _P, _I]),
+    "miller": ("miller", "host_miller", [_P, _P, _P, _I]),
+    "gt_product": ("gt_product", "host_gt_product", [_P, _P, _I, _I]),
+    "final_exp": ("final_exp", "host_final_exp", [_P, _P, _I]),
 }
 
 
@@ -49,18 +50,19 @@ def host(tmp_path_factory):
         pytest.skip("no C++ compiler to build the kernels' row functions for the CPU")
     out = tmp_path_factory.mktemp("csrc_host")
     procs = {}
-    for name in ENTRY:  # all sources compile at once
-        procs[name] = subprocess.Popen(
+    for src in {e[0] for e in ENTRY.values()}:  # all sources compile at once
+        procs[src] = subprocess.Popen(
             [cxx, "-x", "c++", "-std=c++17", "-O1", "-DFTS_HOST_CHECK",
              "-include", os.path.join(CSRC, "host_check.h"), "-shared", "-fPIC",
-             "-o", str(out / f"{name}.so"), os.path.join(CSRC, f"{name}.cu")],
+             "-o", str(out / f"{src}.so"), os.path.join(CSRC, f"{src}.cu")],
             stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True,
         )
+    for src, proc in procs.items():
+        log, _ = proc.communicate(timeout=300)
+        assert proc.returncode == 0, f"{src}.cu: {log}"
     fns = {}
-    for name, (symbol, argtypes) in ENTRY.items():
-        log, _ = procs[name].communicate(timeout=300)
-        assert procs[name].returncode == 0, f"{name}.cu: {log}"
-        fn = getattr(ctypes.CDLL(str(out / f"{name}.so")), symbol)
+    for name, (src, symbol, argtypes) in ENTRY.items():
+        fn = getattr(ctypes.CDLL(str(out / f"{src}.so")), symbol)
         fn.argtypes, fn.restype = argtypes, None
         fns[name] = fn
     return fns
@@ -122,6 +124,28 @@ def test_g1_msm_row_matches_plain_and_hostmath(host, nbases):
     host["g1_msm"](table.table.data_ptr(), sc.data_ptr(), out.data_ptr(), len(rows), nbases)
     assert torch.equal(out, st.g1_msm_plain(table.table, sc))
     assert cv.decode_points(out) == [hm.g1_multiexp(bases, r) for r in rows]
+
+
+@pytest.mark.parametrize("nbases", [1, 2, 3])
+def test_g1_msm_select_row_matches_plain_and_hostmath(host, nbases):
+    """The select form on the scalar edges 0, 1, r-1, all-15 digits
+    (2^256 - 1), a single non-zero window and the digits 0..15 in turn
+    (0x0123...f, words not reduced: the kernels read them as given),
+    against its plain version, the gather kernel's and hostmath."""
+    rng = random.Random(34 + nbases)
+    bases = _pts(rng, nbases)
+    table = cv.FixedBaseTable(bases)
+    ks = [0, 1, hm.R - 1, (1 << 256) - 1, 9 << (4 * 21), int("fedcba9876543210" * 4, 16)]
+    rows = [[k] * nbases for k in ks] + [[rng.randrange(hm.R) for _ in range(nbases)]]
+    words = lb.ints_to_words([s for r in rows for s in r]).reshape(len(rows), nbases, 8)
+    sc = torch.from_numpy(words)
+    out = torch.empty((len(rows), 3, 8), dtype=torch.int32)
+    host["g1_msm_select"](table.table.data_ptr(), sc.data_ptr(), out.data_ptr(), len(rows), nbases)
+    assert torch.equal(out, st.g1_msm_select_plain(table.table, sc))
+    gathered = torch.empty_like(out)
+    host["g1_msm"](table.table.data_ptr(), sc.data_ptr(), gathered.data_ptr(), len(rows), nbases)
+    assert torch.equal(out, gathered)
+    assert cv.decode_points(out) == [hm.g1_multiexp(bases, [s % hm.R for s in r]) for r in rows]
 
 
 def _g2pts(rng, n):
