@@ -8,7 +8,12 @@ source's `ptxas -v` report, then holds the range-path kernels (G1 and G2
 to-affine, G2 add and ladder, Miller loop, final exponentiation, GT
 product) against their plain torch versions on a few rows with the edge
 cases (infinity, P+P, P-P, scalars 0, 1 and r-1, a (0, 0) Miller leg),
-and times three of them once at about a block's rows. Then the prove
+and times three of them once at about a block's rows. Then the mesh
+plane: the fused pairing product's two modes (`csrc/pairing_fused.cu`)
+against the staged kernels on K = 1, 2, 4 and against the plain version
+with a masked leg, timed once beside the staged sequence, and
+`sharded_pairing_product(fused=True)` on logical (2, 2) and (1, 1)
+meshes with its launches. Then the prove
 plane: the select multiexp against its plain version and the gather on
 the scalar edges, its time on zero and on random scalars beside the
 gather's, a small batched 2-in/2-out prove on the card checked by the
@@ -105,6 +110,49 @@ fn = f[:1].repeat(256, 1, 1, 1).contiguous()
 once("final_exp256", lambda: st.final_exp_rows(fn))
 pm, km = pw[:1].repeat(512, 1, 1, 1).to(dev), kw[3:4].repeat(512, 1).to(dev)
 once("g2_mul512", lambda: st.g2_mul_rows(pm, km))
+
+# ---------------------------------------------------------------- mesh plane
+# the fused pairing product (both modes) against the staged kernels and
+# the plain version on edge rows, one timing a mode at the membership
+# check's block rows, and the sharded product on logical meshes
+from fabric_token_sdk_tpu_torch.parallel import make_mesh, sharded_pairing_product  # noqa: E402
+
+legs = [hm.g1_mul(hm.G1_GEN, rng.randrange(1, hm.R)) for _ in range(7)] + [None]
+qlegs = [hm.g2_mul(hm.G2_GEN, rng.randrange(1, hm.R)) for _ in range(8)]
+Pe = torch.from_numpy(pr.encode_g1(legs)).to(dev)
+Qe = torch.from_numpy(pr.encode_g2(qlegs)).to(dev)
+fe = st.miller_rows(Pe, Qe)  # held against its plain version above
+for k in (1, 2, 4):
+    n_rows = 8 // k
+    P4, Q4 = Pe.reshape(n_rows, k, 2, 8), Qe.reshape(n_rows, k, 2, 2, 8)
+    staged = st.final_exp_rows(st.gt_product_rows(fe.reshape(n_rows, k, 6, 2, 8).contiguous()))
+    chk(f"pairing_product K={k} vs staged", st.pairing_product_rows(P4, Q4), staged)
+    chk(f"gt_product_final_exp K={k} vs staged",
+        st.gt_product_final_exp_rows(fe.reshape(n_rows, k, 6, 2, 8).contiguous()), staged)
+mask = torch.zeros((2, 4), dtype=torch.bool)
+mask[0, 1] = mask[1, 3] = True  # row 1's (0, 0) leg masked: the same GT value
+P4, Q4 = Pe.reshape(2, 4, 2, 8), Qe.reshape(2, 4, 2, 2, 8)
+plain = st.pairing_product_plain(P4.cpu(), Q4.cpu(), mask.numpy())
+chk("pairing_product masked vs plain", st.pairing_product_rows(P4, Q4, mask.numpy()), plain)
+chk("pairing_staged masked vs plain", pr.pairing_product_staged(P4, Q4, mask.numpy()), plain)
+for n_rows, k in ((248, 4), (64, 2)):
+    Pn = P4[:1, :k].repeat(n_rows, 1, 1, 1).contiguous()
+    Qn = Q4[:1, :k].repeat(n_rows, 1, 1, 1, 1).contiguous()
+    fn_ = st.miller_rows(Pn.reshape(-1, 2, 8), Qn.reshape(-1, 2, 2, 8)).reshape(n_rows, k, 6, 2, 8)
+    once(f"pairing_product {n_rows}x{k}", lambda: st.pairing_product_rows(Pn, Qn))
+    once(f"gt_product_final_exp {n_rows}x{k}", lambda: st.gt_product_final_exp_rows(fn_))
+    once(f"staged {n_rows}x{k}", lambda: pr.pairing_product_staged(Pn, Qn))
+    chk(f"pairing_staged {n_rows}x{k}", pr.pairing_product_staged(Pn, Qn),
+        st.pairing_product_rows(Pn, Qn))
+for shape in ((2, 2), (1, 1)):
+    mesh = make_mesh(shape[0] * shape[1], mp=shape[1], devices=[dev] * (shape[0] * shape[1]))
+    for k_ in _build.ALL_KERNELS:
+        k_.launches = 0
+    got = sharded_pairing_product(P4, Q4, mesh, fused=True)
+    print("fused mesh", shape, {k_.name: k_.launches for k_ in _build.ALL_KERNELS if k_.launches},
+          flush=True)
+    chk(f"sharded fused {shape} vs staged", got, pr.pairing_product_staged(P4, Q4))
+print("build log pairing_fused.cu:", _build.BUILD_LOG.get("pairing_fused.cu", "")[-3000:], flush=True)
 
 # ---------------------------------------------------------------- prove plane
 from fabric_token_sdk_tpu_torch.crypto import batch as bt, setup as su, token as tok  # noqa: E402

@@ -39,6 +39,20 @@ kernel is timed on zero and on random scalars beside the gather. Last,
 randomised, with tampered and malformed rows) through
 `BatchedPSVerifier`, verdicts equal the host's.
 
+Last, the mesh plane on logical meshes of the one card (every cell of a
+(dp = 2, mp = 2) mesh, and a (1, 1) mesh, on cuda:0): the fused pairing
+product of `csrc/pairing_fused.cu` in both modes (the whole product a
+row, and the tail after a gather of Miller values) held exactly against
+its plain version and the staged launch sequence on edge rows (K = 1,
+2, 4, a (0, 0) leg, masked legs), on the membership check's legs and on
+the PS verify's legs, and timed beside the staged sequence; the PS
+checks through `sharded_pairing_product(fused=True)` on both meshes
+(planted rows rejected, the launches as planned) and through
+`multichip_torch.py --logical`; `sharded_schnorr_rows` on the mesh bit
+for bit against no mesh; and `BatchedSchnorrVerifier` on 64 and 1,024
+signatures with planted faults against the host `PublicKey.verify`,
+with and without the mesh.
+
 Phases print one line each. Before the last line come the GPU's name
 and power limit as `nvidia-smi` reports them and one JSON object with
 each path kernel's launches, times and bound; the last line is
@@ -128,14 +142,14 @@ RANGE_KERNELS = ("g1_to_affine", "g2_mul", "g2_add", "g2_to_affine", "miller",
 # (msm, mul, sub), membership (msm x2, mul x2, sub, and one of each range
 # kernel), equality (msm x2, mul x2, sub x2)
 RANGE_LAUNCHES = {"g1_msm": 5, "g1_mul": 5, "g1_addsub": 4, **{k: 1 for k in RANGE_KERNELS},
-                  "g1_msm_select": 0}
+                  "g1_msm_select": 0, "pairing_product": 0, "gt_product_final_exp": 0}
 # launches of one 2-in/2-out prove, reckoned from crypto/batch_prove.py:
 # select multiexps for the WF (ped3), ped2, equality (ped3) and P rows,
 # the signature ladder, the obfuscating add, the G2 ladder, add and
 # to-affine, and the K = 2 pairing product; no gather, no to-affine in G1
 PROVE_LAUNCHES = {"g1_msm": 0, "g1_mul": 1, "g1_addsub": 1, "g1_to_affine": 0, "g2_mul": 1,
                   "g2_add": 1, "g2_to_affine": 1, "miller": 1, "gt_product": 1, "final_exp": 1,
-                  "g1_msm_select": 4}
+                  "g1_msm_select": 4, "pairing_product": 0, "gt_product_final_exp": 0}
 PROVE_WF_LAUNCHES = {**{k: 0 for k in PROVE_LAUNCHES}, "g1_msm_select": 1}
 # a PS verify: the G2 ladder, two G2 adds (the tree of 2 terms, then PK0),
 # to-affine, and the K = 2 product
@@ -157,6 +171,8 @@ REPLACES = {
     "g1_msm_select": "fabric_token_sdk_tpu/ops/curve.py:256",
     "g1_add": "fabric_token_sdk_tpu/ops/curve.py:60",
     "gt_product_k2": "fabric_token_sdk_tpu/ops/pairing.py:361",
+    "pairing_product": "fabric_token_sdk_tpu/parallel/sharding.py:158",
+    "gt_product_final_exp": "fabric_token_sdk_tpu/parallel/sharding.py:158",
 }
 
 
@@ -227,6 +243,7 @@ def main() -> int:
     ap.add_argument("--seed", type=int, default=20261017)
     args = ap.parse_args()
 
+    import numpy as np
     import torch
 
     if not torch.cuda.is_available():
@@ -628,9 +645,9 @@ def main() -> int:
     def capturing(name):
         fn = originals[name]
 
-        def wrapper(*a):
+        def wrapper(*a, **kw):
             captured.setdefault(name, tuple(x.clone() for x in a))
-            return fn(*a)
+            return fn(*a, **kw)
         return wrapper
 
     def verify_counted(txs):
@@ -780,9 +797,9 @@ def main() -> int:
         def recording(name):
             fn = saved[name]
 
-            def wrapper(*a):
+            def wrapper(*a, **kw):
                 captured[name].append(tuple(x.clone() for x in a))
-                return fn(*a)
+                return fn(*a, **kw)
             return wrapper
 
         for name, fn in prove_capture.items():
@@ -991,6 +1008,257 @@ def main() -> int:
         f"no signature): verdicts equal the host's; first verify {t_ps * 1e3:.1f} ms; launches "
         f"{ {k: v for k, v in launches_ps.items() if v} } [{card}]")
 
+    # ---------------------------------------------------------------- mesh
+    # The mesh plane on logical meshes of this one card: every cell of a
+    # (dp = 2, mp = 2) mesh, and the (1, 1) mesh, on cuda:0. First the
+    # fused pairing product (csrc/pairing_fused.cu) in both modes against
+    # its plain version and the staged launch sequence, then the plane's
+    # entry points: sharded_pairing_product(fused=True) on both meshes,
+    # sharded_schnorr_rows, BatchedSchnorrVerifier and multichip_torch.py.
+    import multichip_torch
+    from fabric_token_sdk_tpu_torch.crypto import sign as sgn
+    from fabric_token_sdk_tpu_torch.crypto.batch_sign import BatchedSchnorrVerifier
+    from fabric_token_sdk_tpu_torch.crypto.serialization import dumps, loads
+    from fabric_token_sdk_tpu_torch.parallel import (
+        make_mesh, sharded_pairing_product, sharded_schnorr_rows)
+
+    mesh22 = make_mesh(4, mp=2, devices=[dev] * 4)
+    mesh11 = make_mesh(1, devices=[dev])
+
+    def staged_seq(P, Q):
+        """The staged launch sequence miller -> gt_product -> final_exp."""
+        b, k = P.shape[0], P.shape[1]
+        f = st.miller_rows(P.reshape(b * k, 2, lb.NWORDS), Q.reshape(b * k, 2, 2, lb.NWORDS))
+        return st.final_exp_rows(st.gt_product_rows(f.reshape(b, k, 6, 2, lb.NWORDS)))
+
+    def miller_of(P, Q, mask=None):
+        b, k = P.shape[0], P.shape[1]
+        f = st.miller_rows(P.reshape(b * k, 2, lb.NWORDS), Q.reshape(b * k, 2, 2, lb.NWORDS))
+        return st._mask_one(f.reshape(b, k, 6, 2, lb.NWORDS), mask).contiguous()
+
+    def both_modes(tag, P, Q, want, mask=None):
+        """Both modes and the staged sequence against `want`, exactly."""
+        outs = {"pairing_product": st.pairing_product_rows(P, Q, mask),
+                "gt_product_final_exp": st.gt_product_final_exp_rows(miller_of(P, Q, mask)),
+                "staged": pr.pairing_product_staged(P, Q, mask)}
+        for name, got in outs.items():
+            if not torch.equal(got, want):
+                fail(f"{name} disagrees with the plain pairing product on {tag} "
+                     f"(max |err| {max_abs_err(got, want)})")
+        return max(max_abs_err(o, want) for o in outs.values())
+
+    # edge rows: K = 1, 2, 4, a (0, 0) leg unmasked and masked, a finite
+    # leg masked, values in [p, 2p); the plain results of every group by
+    # one plain Miller call and one plain final exponentiation on the CPU
+    edge = {}
+    n_edge = 4
+    for k in (1, 2, 4):
+        legs_P = rand_points(n_edge * k, [None])  # leg 0: (0, 0)
+        eP = redundant(torch.from_numpy(pr.encode_g1(legs_P)), range(1, 3))
+        eQ = redundant(torch.from_numpy(pr.encode_g2(rand_points(n_edge * k, [], pool2))),
+                       range(2, 4))
+        mask = np.zeros((n_edge, k), dtype=bool)
+        mask[0, 0] = True  # the (0, 0) leg masked
+        mask[n_edge - 1, k - 1] = True  # a finite leg masked
+        edge[k] = (eP.reshape(n_edge, k, 2, 8).to(dev), eQ.reshape(n_edge, k, 2, 2, 8).to(dev),
+                   mask)
+    t = time.perf_counter()
+    all_P = torch.cat([eP.reshape(-1, 2, 8) for eP, _, _ in edge.values()]).cpu()
+    all_Q = torch.cat([eQ.reshape(-1, 2, 2, 8) for _, eQ, _ in edge.values()]).cpu()
+    f_plain = st.miller_plain(all_P, all_Q)
+    prods, at = [], 0
+    for k, (_, _, mask) in edge.items():
+        fk = f_plain[at:at + n_edge * k].reshape(n_edge, k, 6, 2, lb.NWORDS)
+        at += n_edge * k
+        prods += [st.gt_product_plain(fk), st.gt_product_plain(st._mask_one(fk, mask))]
+    gt_plain = st.final_exp_plain(torch.cat(prods)).to(dev)
+    t_edge_plain = time.perf_counter() - t
+    at = 0
+    for k, (eP, eQ, mask) in edge.items():
+        both_modes(f"edge rows K={k}", eP, eQ, gt_plain[at:at + n_edge])
+        both_modes(f"edge rows K={k} masked", eP, eQ, gt_plain[at + n_edge:at + 2 * n_edge], mask)
+        at += 2 * n_edge
+    say("mesh", f"pairing_product and gt_product_final_exp (and the staged sequence) equal the "
+        f"plain pairing product exactly on edge rows K = 1, 2, 4 (a (0, 0) leg unmasked and "
+        f"masked, a finite leg masked, values in [p, 2p)); plain {t_edge_plain:.1f} s on the CPU")
+
+    # the membership check's legs (the verify's own Miller inputs, K = 4)
+    # and the PS verify's legs (K = 2) at the block's rows against the
+    # plain version; at the batch's rows (copies of the block) against
+    # the block's plain output repeated
+    mem_P = inputs_block["miller"][0].reshape(-1, 4, 2, lb.NWORDS).contiguous()
+    mem_Q = inputs_block["miller"][1].reshape(-1, 4, 2, 2, lb.NWORDS).contiguous()
+    mem_Pb = inputs_batch["miller"][0].reshape(-1, 4, 2, lb.NWORDS).contiguous()
+    mem_Qb = inputs_batch["miller"][1].reshape(-1, 4, 2, 2, lb.NWORDS).contiguous()
+    ps_legs = {}
+    staged_fn = pr.pairing_product_staged
+
+    def grab(Ps, Qs, *a, **kw):
+        ps_legs.setdefault("P", Ps.clone())
+        ps_legs.setdefault("Q", Qs.clone())
+        return staged_fn(Ps, Qs, *a, **kw)
+
+    pr.pairing_product_staged = grab
+    try:
+        ps_verifier.verify(ps_msgs, ps_sigs)
+    finally:
+        pr.pairing_product_staged = staged_fn
+    ps_P, ps_Q = ps_legs["P"].contiguous(), ps_legs["Q"].contiguous()
+    copies = BATCH_TXS * ROWS_PER_TX // PS_SIGS
+    ps_Pb = ps_P.repeat(copies, 1, 1, 1).contiguous()
+    ps_Qb = ps_Q.repeat(copies, 1, 1, 1, 1).contiguous()
+    sets = {"membership": (mem_P, mem_Q, mem_Pb, mem_Qb), "ps": (ps_P, ps_Q, ps_Pb, ps_Qb)}
+    mesh_stats = {}
+    for tag, (sP, sQ, sPb, sQb) in sets.items():
+        if tag == "membership":  # the plain times of the kernels line, on the card
+            want, p_ms = plain_timed(lambda: st.pairing_product_plain(sP, sQ))
+            f_blk = miller_of(sP, sQ)
+            _, p_tail_ms = plain_timed(lambda: st.gt_product_final_exp_plain(f_blk))
+        else:
+            t = time.perf_counter()
+            want = st.pairing_product_plain(sP.cpu(), sQ.cpu()).to(dev)
+            p_ms, p_tail_ms = (time.perf_counter() - t) * 1e3, None
+        err = both_modes(f"the {tag} rows ({sP.shape[0]} x {sP.shape[1]})", sP, sQ, want)
+        copies_of = sPb.shape[0] // sP.shape[0]
+        err = max(err, both_modes(f"the {tag} batch rows ({sPb.shape[0]} x {sPb.shape[1]})",
+                                  sPb, sQb, want.repeat(copies_of, 1, 1, 1)))
+        fb, fbig = miller_of(sP, sQ), miller_of(sPb, sQb)
+        k = sP.shape[1]
+        row = {"k": k, "rows_block": sP.shape[0], "rows_batch": sPb.shape[0], "max_abs_err": err,
+               "plain_ms": p_ms, "plain_tail_ms": p_tail_ms}
+        for size, (PP, QQ, ff) in (("block", (sP, sQ, fb)), ("batch", (sPb, sQb, fbig))):
+            b = PP.shape[0]
+            row[f"ms_{size}"] = timed(lambda: st.pairing_product_rows(PP, QQ), 3)
+            row[f"tail_ms_{size}"] = timed(lambda: st.gt_product_final_exp_rows(ff), 3)
+            row[f"staged_ms_{size}"] = timed(lambda: staged_seq(PP, QQ), 3)
+            ops_tail = b * (k - 1) * FP12_MUL + b * FEXP_PER_ROW + FP12_INV
+            row[f"bound_{size}"] = bound_ms(
+                miller_products(b * k) + ops_tail,
+                b * k * (2 * SCALAR_BYTES + 2 * FP2_BYTES) + b * FP12_BYTES)
+            row[f"tail_bound_{size}"] = bound_ms(ops_tail, b * (k + 1) * FP12_BYTES)
+        mesh_stats[tag] = row
+    say("mesh", "both modes equal the plain pairing product and the staged sequence exactly on "
+        "the membership check's legs and the PS verify's legs; ms a launch at block/batch rows: "
+        + "; ".join(
+            f"{tag} {v['rows_block']}/{v['rows_batch']} x K={v['k']}: pairing_product "
+            f"{v['ms_block']:.3f}/{v['ms_batch']:.3f} (bound {v['bound_block'][0]:.4f}/"
+            f"{v['bound_batch'][0]:.4f}), gt_product_final_exp {v['tail_ms_block']:.3f}/"
+            f"{v['tail_ms_batch']:.3f} (bound {v['tail_bound_block'][0]:.4f}/"
+            f"{v['tail_bound_batch'][0]:.4f}), staged miller+gt_product+final_exp "
+            f"{v['staged_ms_block']:.3f}/{v['staged_ms_batch']:.3f}, plain {v['plain_ms']:.0f}"
+            for tag, v in mesh_stats.items()) + f" [{card}]")
+
+    # stage 2 of the dry run: the PS checks through the fused sharded
+    # product on both meshes (5 planted rows), each the main path of the
+    # fused kernel's modes: counts set to 0 just before, read just after
+    ps_staged = pr.pairing_product_staged(ps_P, ps_Q)
+    fused_launches = {}
+    for name, mesh, expect in (
+            ("(2, 2)", mesh22, {"miller": 4, "gt_product_final_exp": 2}),
+            ("(1, 1)", mesh11, {"pairing_product": 1})):
+        for kk in _build.ALL_KERNELS:
+            kk.launches = 0
+        gt = sharded_pairing_product(ps_P, ps_Q, mesh, fused=True)
+        counts = {kk.name: kk.launches for kk in _build.ALL_KERNELS if kk.launches}
+        if counts != expect:
+            fail(f"the fused sharded product on the {name} mesh launched {counts}, "
+                 f"expected {expect}")
+        fused_launches[name] = counts
+        if not torch.equal(gt, ps_staged):
+            fail(f"the fused sharded product on the {name} mesh differs from the staged path")
+        if pr.gt_is_one_host(gt.cpu().numpy()).tolist() != ps_host:
+            fail(f"fused sharded PS verdicts on the {name} mesh differ from the host's")
+    for args_ in (["--fused"], []):
+        rc = multichip_torch.main(["--logical", "--devices", "4", "--mp", "2", *args_])
+        if rc != 0:
+            fail(f"multichip_torch.py --logical --devices 4 --mp 2 {' '.join(args_)} exited {rc}")
+    say("mesh", f"stage 2: {PS_SIGS} PS rows through sharded_pairing_product(fused=True): valid "
+        f"rows accepted and planted rows {ps_bad} rejected on the (2, 2) and the (1, 1) mesh, "
+        f"GT values equal the staged path's; launches {fused_launches}; multichip_torch.py "
+        f"--logical --devices 4 --mp 2 passes fused and staged [{card}]")
+
+    # stage 1: Schnorr rows over the mesh's 2 row groups against the
+    # rows without a mesh, bit for bit
+    s_bases, s_resp, s_stmts, s_chals = multichip_torch.schnorr_fixture(rng, 256)
+    s_table = cv.FixedBaseTable(s_bases).to(dev)
+    s_args = (torch.from_numpy(cv.encode_scalars([x for r in s_resp for x in r])
+                               .reshape(-1, 3, lb.NWORDS)).to(dev),
+              torch.from_numpy(cv.encode_points(s_stmts)).to(dev),
+              torch.from_numpy(cv.encode_scalars(s_chals)).to(dev))
+    for kk in _build.ALL_KERNELS:
+        kk.launches = 0
+    s_mesh = sharded_schnorr_rows(s_table, *s_args, mesh=mesh22)
+    s_counts = {kk.name: kk.launches for kk in _build.ALL_KERNELS if kk.launches}
+    if s_counts != {"g1_msm": 2, "g1_mul": 2, "g1_addsub": 2}:
+        fail(f"sharded_schnorr_rows on the (2, 2) mesh launched {s_counts}")
+    if not torch.equal(s_mesh, sharded_schnorr_rows(s_table, *s_args, mesh=None)):
+        fail("sharded_schnorr_rows on the mesh differs from mesh=None")
+
+    # BatchedSchnorrVerifier on 64 and 1,024 signatures with planted faults
+    def schnorr_rows(count):
+        keys = [sgn.keygen(rng) for _ in range(8)]
+        rows = []
+        for i in range(count):
+            key = keys[i % len(keys)]
+            msg = b"block %d tx %d" % (count, i)
+            rows.append((key.public.point, msg, key.sign(msg, rng)))
+        for i, edit in ((3, "c"), (7, "z")):
+            d = loads(rows[i][2])
+            d[edit] ^= 1 << (i % 5)
+            rows[i] = (rows[i][0], rows[i][1], dumps(d))
+        rows[11] = (rows[11][0], b"another message", rows[11][2])
+        rows[15] = (keys[(15 + 1) % len(keys)].public.point, rows[15][1], rows[15][2])
+        rows[19] = (rows[19][0], rows[19][1], b"\x00not a signature")
+        return rows
+
+    def host_sign_verdicts(rows):
+        out = []
+        for pk, msg, sig in rows:
+            try:
+                loads(sig)
+            except Exception:  # noqa: BLE001
+                out.append(None)
+                continue
+            try:
+                sgn.PublicKey(pk).verify(msg, sig)
+                out.append(True)
+            except Exception:  # noqa: BLE001
+                out.append(False)
+        return out
+
+    schnorr = BatchedSchnorrVerifier(device="cuda")
+    schnorr_mesh = BatchedSchnorrVerifier(device="cuda", mesh=mesh22)
+    sign_medians, sign_launches = {}, None
+    for count in (BLOCK_TXS, BATCH_TXS):
+        rows = schnorr_rows(count)
+        want = host_sign_verdicts(rows)
+        if [i for i, v in enumerate(want) if v is not True] != [3, 7, 11, 15, 19]:
+            fail("the host Schnorr verifier does not reject exactly the planted rows")
+        for kk in _build.ALL_KERNELS:
+            kk.launches = 0
+        got = schnorr.verify(rows)
+        counts = {kk.name: kk.launches for kk in _build.ALL_KERNELS if kk.launches}
+        if counts != {"g1_msm": 1, "g1_mul": 1, "g1_addsub": 1}:
+            fail(f"a BatchedSchnorrVerifier call launched {counts}")
+        sign_launches = counts
+        if got != want or schnorr_mesh.verify(rows) != want:
+            fail(f"BatchedSchnorrVerifier verdicts on {count} signatures differ from the host's")
+        sign_medians.update(medians("Schnorr", [(rows, PROVE_REPS[0])], run=schnorr.verify,
+                                    unit="sig"))
+    say("mesh", f"stage 1: {len(s_stmts)} Schnorr rows over the (2, 2) mesh's 2 row groups "
+        f"(launches {s_counts}) equal mesh=None bit for bit; BatchedSchnorrVerifier on "
+        f"{BLOCK_TXS} and {BATCH_TXS} signatures (planted: c and z bit-flipped, message, pk, "
+        f"an unparsable blob) equals the host PublicKey.verify, with and without the mesh; "
+        f"launches a call {sign_launches} [{card}]")
+
+    ptxas = {}
+    lines = _build.BUILD_LOG.get("pairing_fused.cu", "").splitlines()
+    for i, ln in enumerate(lines):
+        if "Compiling entry function" in ln:
+            entry = "pairing_product" if "ILb1E" in ln else "gt_product_final_exp"
+            ptxas[entry] = " ".join(x.split(":", 1)[-1].strip() for x in lines[i + 2:i + 4])
+    say("mesh", f"pairing_fused.cu ptxas: {ptxas}")
+
     # ---------------------------------------------------------------- report
     kernels = []
     big, small = BATCH_TXS * ROWS_PER_TX, BLOCK_TXS * ROWS_PER_TX
@@ -1046,11 +1314,35 @@ def main() -> int:
             row["launches_1in1out_prove"] = launches_pwf[name]
             row["zero_vs_random_scalars_ms"] = zero_random
         kernels.append(row)
+    # the mesh plane's kernel: both modes of pairing_fused.cu, at the
+    # membership check's batch rows (K = 4); the PS rows beside them
+    for name, launches_of, prefix in (("pairing_product", fused_launches["(1, 1)"], ""),
+                                      ("gt_product_final_exp", fused_launches["(2, 2)"], "tail_")):
+        v, vp = mesh_stats["membership"], mesh_stats["ps"]
+        kernels.append({
+            "name": name, "route": "cuda",
+            "source": "fabric_token_sdk_tpu_torch/csrc/pairing_fused.cu",
+            "replaces": REPLACES[name], "launches": launches_of[name],
+            "max_abs_err": max(v["max_abs_err"], vp["max_abs_err"]),
+            "ms": v[f"{prefix}ms_batch"],
+            "plain_ms": v["plain_ms"] if name == "pairing_product" else v["plain_tail_ms"],
+            "bound_ms": v[f"{prefix}bound_batch"][0], "bound_by": v[f"{prefix}bound_batch"][1],
+            "library_ms": None, "rows": v["rows_batch"], "k": v["k"],
+            "ms_block": v[f"{prefix}ms_block"], "rows_block": v["rows_block"],
+            "bound_ms_block": v[f"{prefix}bound_block"][0], "plain_rows": v["rows_block"],
+            "staged_ms": v["staged_ms_batch"], "staged_ms_block": v["staged_ms_block"],
+            "ps_rows": [vp["rows_block"], vp["rows_batch"]], "ps_k": vp["k"],
+            "ps_ms": [vp[f"{prefix}ms_block"], vp[f"{prefix}ms_batch"]],
+            "ps_bound_ms": [vp[f"{prefix}bound_block"][0], vp[f"{prefix}bound_batch"][0]],
+            "ps_staged_ms": [vp["staged_ms_block"], vp["staged_ms_batch"]],
+            "ptxas": ptxas.get(name),
+        })
     print(json.dumps({
         "range_verify_median_ms": {str(k): v * 1e3 for k, v in range_medians.items()},
         "prove_median_ms": {str(k): v * 1e3 for k, v in prove_medians.items()},
         "prove_1in1out_median_ms": {str(k): v * 1e3 for k, v in prove_medians_wf.items()},
         "ps_verify_median_ms": {str(k): v * 1e3 for k, v in ps_medians.items()},
+        "schnorr_verify_median_ms": {str(k): v * 1e3 for k, v in sign_medians.items()},
         "build_s": t_build}), flush=True)
     print(card, flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)

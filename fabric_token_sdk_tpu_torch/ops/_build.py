@@ -32,9 +32,9 @@ BUILD_DIR = os.path.join(os.path.dirname(_HERE), "_build")
 SOURCES = (
     "g1_msm.cu", "g1_mul.cu", "g1_addsub.cu", "fp_ops.cu", "g1_to_affine.cu",
     "g2_mul.cu", "g2_add.cu", "g2_to_affine.cu", "miller.cu", "gt_product.cu",
-    "final_exp.cu",
+    "final_exp.cu", "pairing_fused.cu",
 )
-HEADERS = ("bn254_fp.cuh", "bn254_g1.cuh", "bn254_tower.cuh", "bn254_g2.cuh")
+HEADERS = ("bn254_fp.cuh", "bn254_g1.cuh", "bn254_tower.cuh", "bn254_g2.cuh", "bn254_pairing.cuh")
 NVCC_FLAGS = (
     "-gencode=arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
@@ -98,7 +98,8 @@ def build_all() -> Dict[str, ctypes.CDLL]:
 class Kernel:
     """One CUDA entry point: `launch(device, *args)` builds on first use,
     calls it on the device's current stream, raises on a non-zero CUDA
-    error, and counts the launch."""
+    error, and counts the launch (under a lock: callers may launch from
+    several threads)."""
 
     def __init__(self, name: str, source: str, symbol: str, argtypes):
         self.name = name
@@ -106,6 +107,7 @@ class Kernel:
         self.symbol = symbol
         self.argtypes = list(argtypes)
         self.launches = 0
+        self._count_lock = threading.Lock()
         self._fn: Optional[ctypes._CFuncPtr] = None
 
     def _bind(self):
@@ -123,7 +125,8 @@ class Kernel:
             rc = fn(*args, stream)
         if rc != 0:
             raise RuntimeError(f"{self.name}: CUDA launch failed with error {rc}")
-        self.launches += 1
+        with self._count_lock:
+            self.launches += 1
 
 
 _PTR, _INT = ctypes.c_void_p, ctypes.c_int
@@ -141,6 +144,10 @@ G2_TO_AFFINE = Kernel("g2_to_affine", "g2_to_affine.cu", "fts_g2_to_affine", [_P
 MILLER = Kernel("miller", "miller.cu", "fts_miller", [_PTR, _PTR, _PTR, _INT])
 GT_PRODUCT = Kernel("gt_product", "gt_product.cu", "fts_gt_product", [_PTR, _PTR, _INT, _INT])
 FINAL_EXP = Kernel("final_exp", "final_exp.cu", "fts_final_exp", [_PTR, _PTR, _INT])
+PAIRING_PRODUCT = Kernel("pairing_product", "pairing_fused.cu", "fts_pairing_product",
+                         [_PTR, _PTR, _PTR, _PTR, _INT, _INT])
+GT_PRODUCT_FINAL_EXP = Kernel("gt_product_final_exp", "pairing_fused.cu",
+                              "fts_gt_product_final_exp", [_PTR, _PTR, _INT, _INT])
 
 # the kernels of the verify path: the 1-in/1-out transfer runs the first
 # three, a transfer with a range proof all ten
@@ -156,15 +163,19 @@ PROVE_KERNELS = (
     G1_MSM_SELECT, G1_MUL, G1_ADDSUB, G2_MUL, G2_ADD, G2_TO_AFFINE, MILLER, GT_PRODUCT,
     FINAL_EXP,
 )
-ALL_KERNELS = PATH_KERNELS + (G1_MSM_SELECT,)
+# the fused pairing product of the mesh plane (B16) and of the fused
+# entry point `pairing.pairing_product` (B17): the whole product a row,
+# and the tail after the Miller values were gathered over mp
+MESH_KERNELS = (PAIRING_PRODUCT, GT_PRODUCT_FINAL_EXP)
+ALL_KERNELS = PATH_KERNELS + (G1_MSM_SELECT,) + MESH_KERNELS
 
 
-def check_cuda_tensor(name: str, t: torch.Tensor, shape) -> None:
-    """Raise unless `t` is a contiguous int32 CUDA tensor of `shape`."""
+def check_cuda_tensor(name: str, t: torch.Tensor, shape, dtype=torch.int32) -> None:
+    """Raise unless `t` is a contiguous CUDA tensor of `dtype` and `shape`."""
     if t.device.type != "cuda":
         raise ValueError(f"{name}: expected a CUDA tensor, got {t.device}")
-    if t.dtype != torch.int32:
-        raise ValueError(f"{name}: expected int32, got {t.dtype}")
+    if t.dtype != dtype:
+        raise ValueError(f"{name}: expected {dtype}, got {t.dtype}")
     if not t.is_contiguous():
         raise ValueError(f"{name}: expected a contiguous tensor")
     if tuple(t.shape) != tuple(shape):

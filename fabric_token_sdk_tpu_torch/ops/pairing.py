@@ -14,7 +14,8 @@ coefficient bits, and a Frobenius combine.
 The functions on half-word tensors are the plain versions of the
 `miller`, `gt_product` and `final_exp` CUDA kernels (`csrc/`), which
 `ops/stages.py` launches; `pairing_product_staged` chains the three
-stages, one launch each over all rows.
+stages, one launch each over all rows, and `pairing_product` runs the
+whole product a row in one launch of the fused kernel.
 """
 
 from __future__ import annotations
@@ -269,3 +270,15 @@ def pairing_product_staged(Ps: torch.Tensor, Qs: torch.Tensor, inf_mask=None) ->
         f = torch.where(mask.view(-1, 1, 1, 1), one, f)
     g = st.gt_product_rows(f.reshape(B, K, 6, 2, lb.NWORDS).contiguous())
     return st.final_exp_rows(g)
+
+
+def pairing_product(Ps: torch.Tensor, Qs: torch.Tensor, inf_mask=None) -> torch.Tensor:
+    """prod_k e(P_k, Q_k) for each row in ONE launch of the fused kernel
+    (`csrc/pairing_fused.cu`): the counterpart of the reference's jitted
+    `pairing_product`. Same arguments and result as
+    `pairing_product_staged`, and the same GT values."""
+    from . import stages as st
+
+    if Ps.shape[0] == 0:
+        return torch.zeros((0, 6, 2, lb.NWORDS), dtype=torch.int32, device=Ps.device)
+    return st.pairing_product_rows(Ps.contiguous(), Qs.contiguous(), inf_mask)

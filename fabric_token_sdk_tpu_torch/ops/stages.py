@@ -22,10 +22,10 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from . import curve as cv, curve2 as cv2, limbs as lb, pairing as pr
+from . import curve as cv, curve2 as cv2, limbs as lb, pairing as pr, tower as tw
 from ._build import (
     FINAL_EXP, G1_ADDSUB, G1_MSM, G1_MSM_SELECT, G1_MUL, G1_TO_AFFINE, G2_ADD, G2_MUL,
-    G2_TO_AFFINE, GT_PRODUCT, MILLER, check_cuda_tensor,
+    G2_TO_AFFINE, GT_PRODUCT, GT_PRODUCT_FINAL_EXP, MILLER, PAIRING_PRODUCT, check_cuda_tensor,
 )
 from .field import FP, half_to_words, words_to_half
 from ..utils import metrics as mx
@@ -298,6 +298,65 @@ def final_exp_rows(f: torch.Tensor) -> torch.Tensor:
     out = torch.empty((n,) + _FP12_SHAPE, dtype=torch.int32, device=f.device)
     with mx.span("stages.run", kernel="final_exp", rows=n):
         FINAL_EXP.launch(f.device, f.data_ptr(), out.data_ptr(), n)
+    return out
+
+
+# ------------------------------------------------------------------ fused pairing
+
+def _mask_one(f: torch.Tensor, inf_mask) -> torch.Tensor:
+    """Miller values (..., 6, 2, 8) with the legs of `inf_mask` (bool,
+    the leading shape) set to GT one."""
+    if inf_mask is None:
+        return f
+    mask = torch.as_tensor(np.asarray(inf_mask, dtype=bool)).to(f.device)
+    one = torch.from_numpy(tw.fp12_one_np()).to(f.device)
+    return torch.where(mask.reshape(mask.shape + (1, 1, 1)), one, f)
+
+
+def pairing_product_plain(P: torch.Tensor, Q: torch.Tensor, inf_mask=None) -> torch.Tensor:
+    """Plain version of the pairing_product kernel: the staged sequence
+    miller -> gt_product -> final_exp of the plain versions."""
+    B, K = P.shape[0], P.shape[1]
+    f = miller_plain(P.reshape(B * K, 2, lb.NWORDS), Q.reshape(B * K, 2, 2, lb.NWORDS))
+    f = _mask_one(f.reshape((B, K) + _FP12_SHAPE), inf_mask)
+    return final_exp_plain(gt_product_plain(f))
+
+
+def gt_product_final_exp_plain(f: torch.Tensor) -> torch.Tensor:
+    """Plain version of the gt_product_final_exp kernel."""
+    return final_exp_plain(gt_product_plain(f))
+
+
+def pairing_product_rows(P: torch.Tensor, Q: torch.Tensor, inf_mask=None) -> torch.Tensor:
+    """prod_k e(P_k, Q_k) a row in one launch: G1 affine (N, K, 2, 8), G2
+    affine (N, K, 2, 2, 8), inf_mask (N, K) bool or None (True legs give
+    GT one) -> (N, 6, 2, 8) canonical GT."""
+    n, k = P.shape[0], P.shape[1]
+    mask = None
+    if inf_mask is not None:
+        mask = torch.as_tensor(np.asarray(inf_mask, dtype=bool)).to(P.device, torch.uint8)
+        mask = mask.reshape(n, k).contiguous()
+    if not _route("pairing_product", P, Q, *(() if mask is None else (mask,))):
+        return pairing_product_plain(P, Q, None if mask is None else mask.bool())
+    check_cuda_tensor("pairing_product P", P, (n, k, 2, lb.NWORDS))
+    check_cuda_tensor("pairing_product Q", Q, (n, k, 2, 2, lb.NWORDS))
+    out = torch.empty((n,) + _FP12_SHAPE, dtype=torch.int32, device=P.device)
+    with mx.span("stages.run", kernel="pairing_product", rows=n):
+        PAIRING_PRODUCT.launch(P.device, P.data_ptr(), Q.data_ptr(),
+                               None if mask is None else mask.data_ptr(), out.data_ptr(), n, k)
+    return out
+
+
+def gt_product_final_exp_rows(f: torch.Tensor) -> torch.Tensor:
+    """The product of K Miller values and one final exponentiation a row,
+    in one launch: (N, K, 6, 2, 8) -> (N, 6, 2, 8) canonical GT."""
+    if not _route("gt_product_final_exp", f):
+        return gt_product_final_exp_plain(f)
+    n, k = f.shape[0], f.shape[1]
+    check_cuda_tensor("gt_product_final_exp f", f, (n, k) + _FP12_SHAPE)
+    out = torch.empty((n,) + _FP12_SHAPE, dtype=torch.int32, device=f.device)
+    with mx.span("stages.run", kernel="gt_product_final_exp", rows=n):
+        GT_PRODUCT_FINAL_EXP.launch(f.device, f.data_ptr(), out.data_ptr(), n, k)
     return out
 
 

@@ -1,25 +1,34 @@
-"""Metrics core: counters, gauges and span trees in one registry.
+"""Metrics core: counters, gauges and span trees in one registry, and
+the flight recorder.
 
 The part of the JAX package's `utils/metrics.py` that the port calls:
-the batched verifiers, the host prover and verifier, the parse cache and
-the native self-checks keep their counters and spans under the same
-names. Histograms, trace contexts, the flight recorder, heartbeats and
-the export plane come over when a port module needs them.
+the batched verifiers, the host prover and verifier, the parse cache,
+the native self-checks, the dispatch ledger (`utils/devobs.py`) and the
+mesh plane (`parallel/sharding.py`) keep their instruments under the
+same names. Histograms, trace contexts, heartbeats and the export plane
+come over when a port module needs them.
 
 * One process-wide thread-safe ``Registry`` (``REGISTRY``) holding named
   counters and gauges, completed span trees and free-form metadata.
   Instruments are get-or-create by name.
 * Counters and gauges are always live. Spans are recorded only after
   ``enable(True)``: the disabled ``span()`` is a single global check.
+* The flight recorder (``FLIGHT`` / ``flight(kind, ...)``) is an
+  always-on bounded ring of structured events (mesh clamps, degrades).
+* ``logger`` is the port's logger (the reference's `utils/tracing.logger`).
 """
 
 from __future__ import annotations
 
+import collections
 import contextlib
+import logging
 import threading
 import time
 from dataclasses import dataclass, field
 from typing import Dict, List, Optional
+
+logger = logging.getLogger("fts_torch")
 
 _enabled = False
 
@@ -193,3 +202,49 @@ def counter(name: str) -> Counter:
 
 def gauge(name: str) -> Gauge:
     return REGISTRY.gauge(name)
+
+
+# ------------------------------------------------------------ flight recorder
+
+
+def _jsonable(v):
+    if isinstance(v, (str, int, float, bool)) or v is None:
+        return v
+    if isinstance(v, (list, tuple)):
+        return [_jsonable(x) for x in v]
+    if isinstance(v, dict):
+        return {str(k): _jsonable(x) for k, x in v.items()}
+    return str(v)
+
+
+class FlightRecorder:
+    """Bounded ring of structured lifecycle events, always on (one lock
+    and a deque append on rare events); the oldest events go first."""
+
+    def __init__(self, capacity: int = 1024):
+        self.capacity = max(1, capacity)
+        self._ring: collections.deque = collections.deque(maxlen=self.capacity)
+        self._lock = threading.Lock()
+
+    def record(self, kind: str, **attrs) -> None:
+        evt = {"ts": round(time.time(), 6), "kind": kind}
+        evt.update((k, _jsonable(v)) for k, v in attrs.items() if v is not None)
+        with self._lock:
+            self._ring.append(evt)
+        REGISTRY.counter("flight.events").inc()
+
+    def tail(self, n: Optional[int] = None) -> List[dict]:
+        with self._lock:
+            events = list(self._ring)
+        return events if n is None else events[-n:]
+
+    def __len__(self) -> int:
+        return len(self._ring)
+
+
+FLIGHT = FlightRecorder()
+
+
+def flight(kind: str, **attrs) -> None:
+    """Record one flight-recorder event."""
+    FLIGHT.record(kind, **attrs)

@@ -100,6 +100,8 @@ bad = [m for m in sys.modules
 print(len(names), bad)
 assert not bad, bad
 assert len(names) >= 20, names
+for need in ("parallel.sharding", "crypto.sign", "crypto.batch_sign", "utils.devobs"):
+    assert port.__name__ + "." + need in names, need
 """
     env = dict(os.environ, PYTHONPATH=os.path.abspath(ROOT))
     res = subprocess.run([sys.executable, "-c", code], cwd=ROOT, env=env,

@@ -40,6 +40,8 @@ ENTRY = {  # name: (source in csrc/, symbol, argtypes)
     "miller": ("miller", "host_miller", [_P, _P, _P, _I]),
     "gt_product": ("gt_product", "host_gt_product", [_P, _P, _I, _I]),
     "final_exp": ("final_exp", "host_final_exp", [_P, _P, _I]),
+    "pairing_product": ("pairing_fused", "host_pairing_product", [_P, _P, _P, _P, _I, _I]),
+    "gt_product_final_exp": ("pairing_fused", "host_gt_product_final_exp", [_P, _P, _I, _I]),
 }
 
 
@@ -212,3 +214,59 @@ def test_pairing_rows_match_plain_and_hostmath(host):
     assert torch.equal(h, st.gt_product_plain(ff))
     vals = tw.decode_fp12(f)
     assert tw.decode_fp12(h)[0] == hm.fp12_mul(hm.fp12_mul(vals[0], vals[1]), vals[2])
+
+
+def test_pairing_fused_rows_match_plain_and_hostmath(host):
+    """Both modes of pairing_fused.cu on 3 rows of K = 2, the last leg
+    of row 1 a (0, 0) leg: with no mask, with that leg masked, and the
+    tail on the Miller values of the miller row function, all equal
+    `pairing_product_plain` (the staged plain sequence) exactly; the
+    finite rows equal hostmath's pairing products."""
+    rng = random.Random(29)
+    p = _pts(rng, 5)
+    q = _g2pts(rng, 6)
+    Ps = [[p[0], p[1]], [p[2], None], [p[3], p[4]]]
+    Qs = [[q[0], q[1]], [q[2], q[3]], [q[4], q[5]]]
+    P = torch.from_numpy(pr.encode_g1([x for r in Ps for x in r])).reshape(3, 2, 2, 8)
+    Q = torch.from_numpy(pr.encode_g2([x for r in Qs for x in r])).reshape(3, 2, 2, 2, 8)
+    want = st.pairing_product_plain(P, Q)
+    out = torch.empty((3, 6, 2, 8), dtype=torch.int32)
+    host["pairing_product"](P.data_ptr(), Q.data_ptr(), None, out.data_ptr(), 3, 2)
+    assert torch.equal(out, want)
+    mask = torch.zeros((3, 2), dtype=torch.uint8)
+    mask[1, 1] = 1
+    masked = torch.empty_like(out)
+    host["pairing_product"](P.data_ptr(), Q.data_ptr(), mask.data_ptr(), masked.data_ptr(), 3, 2)
+    assert torch.equal(masked, want)
+    f = torch.empty((6, 6, 2, 8), dtype=torch.int32)
+    host["miller"](P.data_ptr(), Q.data_ptr(), f.data_ptr(), 6)
+    tail = torch.empty_like(out)
+    host["gt_product_final_exp"](f.data_ptr(), tail.data_ptr(), 3, 2)
+    assert torch.equal(tail, want)
+    assert tw.decode_fp12(out) == [
+        hm.pairing_product([(a, b) for a, b in zip(pr_, qr) if a is not None])
+        for pr_, qr in zip(Ps, Qs)]
+
+
+@pytest.mark.parametrize("k", [1, 3, 4])
+def test_pairing_fused_rows_other_leg_counts(host, k):
+    """K = 1, 3, 4 (with a masked leg at K = 4) against hostmath, and the
+    tail over K gathered Miller values against the fused mode."""
+    rng = random.Random(30 + k)
+    p, q = _pts(rng, 2 * k), _g2pts(rng, 2 * k)
+    P = torch.from_numpy(pr.encode_g1(p)).reshape(2, k, 2, 8)
+    Q = torch.from_numpy(pr.encode_g2(q)).reshape(2, k, 2, 2, 8)
+    mask = torch.zeros((2, k), dtype=torch.uint8)
+    if k == 4:
+        mask[0, 2] = 1
+    out = torch.empty((2, 6, 2, 8), dtype=torch.int32)
+    host["pairing_product"](P.data_ptr(), Q.data_ptr(), mask.data_ptr(), out.data_ptr(), 2, k)
+    legs = [[(p[r * k + j], q[r * k + j]) for j in range(k) if not mask[r, j]] for r in range(2)]
+    assert tw.decode_fp12(out) == [hm.pairing_product(row) for row in legs]
+    f = torch.empty((2 * k, 6, 2, 8), dtype=torch.int32)
+    host["miller"](P.data_ptr(), Q.data_ptr(), f.data_ptr(), 2 * k)
+    f = f.reshape(2, k, 6, 2, 8)
+    f[mask.bool()] = torch.from_numpy(tw.fp12_one_np())
+    tail = torch.empty_like(out)
+    host["gt_product_final_exp"](f.contiguous().data_ptr(), tail.data_ptr(), 2, k)
+    assert torch.equal(tail, out)
