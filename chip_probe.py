@@ -1,10 +1,19 @@
 #!/usr/bin/env python3
 """Quick first call on the GPU after a kernel change: build, check, stop.
 
-    python3 chip_probe.py [OUT_DIR]
+    python3 chip_probe.py [OUT_DIR] [--ladder]
 
 Builds every CUDA source of the PyTorch port with `nvcc` and prints each
-source's `ptxas -v` report, then holds the range-path kernels (G1 and G2
+source's `ptxas -v` report. Then the window ladder of `g1_mul` and
+`g2_mul` (`csrc/bn254_ladder.cuh`): both kernels against their plain
+versions on edge rows (scalars 0, 1, r-1, all digits 15 below the top,
+a point at infinity, coordinates in [p, 2p)), and the sweep of lanes a
+row, TPI in {1, 2, 4, 8}: each kernel built once a TPI (`-DFTS_G1_MUL_TPI`,
+`-DFTS_G2_MUL_TPI`, all builds started together), its ptxas line,
+its output held against the built kernel's and its time by CUDA events
+at the verify's rows (g1_mul 256, 4,096 and 7,936; g2_mul 496 and
+7,936). With `--ladder` it stops there and writes the two kernels' SASS.
+Otherwise it goes on and holds the range-path kernels (G1 and G2
 to-affine, G2 add and ladder, Miller loop, final exponentiation, GT
 product) against their plain torch versions on a few rows with the edge
 cases (infinity, P+P, P-P, scalars 0, 1 and r-1, a (0, 0) Miller leg),
@@ -20,11 +29,13 @@ gather's, a small batched 2-in/2-out prove on the card checked by the
 host verifier, a few PS signatures through `BatchedPSVerifier`, and the
 select kernel's PTX and SASS written to OUT_DIR (default `probe_out/`,
 git-ignored) with a count of
-its loads, predicated loads and branches. It takes about two minutes
+its loads, predicated loads and branches, beside the same counts for
+`g1_mul` and `g2_mul`. It takes about two minutes
 of command time where `chip_smoke.py` takes six or more: the place to
 find a kernel that does not build or disagrees before the full smoke
 run. Needs one NVIDIA GPU; imports nothing of JAX.
 """
+import argparse
 import glob
 import os
 import random
@@ -41,6 +52,10 @@ from fabric_token_sdk_tpu_torch.ops import _build, curve as cv, curve2 as cv2  #
 from fabric_token_sdk_tpu_torch.ops import limbs as lb  # noqa: E402
 from fabric_token_sdk_tpu_torch.ops import pairing as pr, stages as st, tower as tw  # noqa: E402
 
+ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+ap.add_argument("out_dir", nargs="?", default="probe_out")
+ap.add_argument("--ladder", action="store_true", help="stop after the ladder checks and sweep")
+args = ap.parse_args()
 if not torch.cuda.is_available():
     sys.exit("chip_probe.py needs an NVIDIA GPU")
 smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
@@ -53,12 +68,13 @@ finally:
     for src, log in sorted(_build.BUILD_LOG.items()):
         print("=====", src)
         print(log[-6000:])
-print("build s", time.perf_counter() - t0, flush=True)
+print("build s", time.perf_counter() - t0, {src: round(sec, 1) for src, sec in sorted(
+    _build.BUILD_SECONDS.items(), key=lambda x: -x[1])}, flush=True)
 dev = torch.device("cuda")
 rng = random.Random(3)
-g1 = [hm.g1_mul(hm.G1_GEN, rng.randrange(1, hm.R)) for _ in range(3)] + [None]
-g2 = [hm.g2_mul(hm.G2_GEN, rng.randrange(1, hm.R)) for _ in range(3)]
 bad = []
+out_dir = args.out_dir
+os.makedirs(out_dir, exist_ok=True)
 
 
 def chk(name, got, want):
@@ -68,6 +84,137 @@ def chk(name, got, want):
         bad.append(name)
 
 
+def ptxas_line(log):
+    lines = log.splitlines()
+    return " | ".join(" ".join(x.split(":", 1)[-1].strip() for x in lines[i + 2:i + 4])
+                      for i, ln in enumerate(lines) if "Compiling entry function" in ln)
+
+
+def lifted(words, rows):
+    """Every 8-word value of the given rows moved from [0, p) into [p, 2p)."""
+    out = words.clone()
+    flat = out.view(out.shape[0], -1, lb.NWORDS)
+    for r in rows:
+        for c in range(flat.shape[1]):
+            v = lb.words_to_int(flat[r, c].numpy())
+            if v < hm.P:
+                flat[r, c] = torch.from_numpy(lb.int_to_words(v + hm.P))
+    return out
+
+
+# ---------------------------------------------------------------- ladder
+# g1_mul and g2_mul against their plain versions on the edges
+print("ptxas g1_mul.cu:", ptxas_line(_build.BUILD_LOG.get("g1_mul.cu", "")), flush=True)
+print("ptxas g2_mul.cu:", ptxas_line(_build.BUILD_LOG.get("g2_mul.cu", "")), flush=True)
+edge_k = [0, 1, hm.R - 1, 16 ** 63 - 1, 5, rng.randrange(hm.R), rng.randrange(hm.R),
+          rng.randrange(hm.R), rng.randrange(hm.R)]
+g1e = [hm.g1_mul(hm.G1_GEN, rng.randrange(1, hm.R)) for _ in range(8)] + [None]
+g2e = [hm.g2_mul(hm.G2_GEN, rng.randrange(1, hm.R)) for _ in range(8)] + [None]
+ke = torch.from_numpy(cv.encode_scalars(edge_k))
+p1 = lifted(torch.from_numpy(cv.encode_points(g1e)), [5, 6, 8])
+p2 = lifted(torch.from_numpy(cv2.encode_points(g2e)), [5, 6, 8])
+chk("g1_mul edges", st.g1_mul_rows(p1.to(dev), ke.to(dev)), st.g1_mul_plain(p1, ke))
+chk("g2_mul edges", st.g2_mul_rows(p2.to(dev), ke.to(dev)), st.g2_mul_plain(p2, ke))
+
+# the sweep: each kernel built at every TPI, held against the built
+# kernel and timed at the verify's rows
+import ctypes  # noqa: E402
+
+SWEEP = {"g1_mul": ("FTS_G1_MUL_TPI", (256, 4096, 7936), 3),
+         "g2_mul": ("FTS_G2_MUL_TPI", (496, 7936), 6)}
+procs = []
+for name, (macro, _, _) in SWEEP.items():
+    for tpi in (1, 2, 4, 8):
+        lib = os.path.join(_build.BUILD_DIR, f"sweep-{name}-tpi{tpi}.so")
+        cmd = [_build.find_nvcc(), *_build.NVCC_FLAGS, f"-I{_build.CSRC}", f"-D{macro}={tpi}",
+               "-o", lib, os.path.join(_build.CSRC, f"{name}.cu")]
+        procs.append((name, tpi, lib, time.perf_counter(), subprocess.Popen(
+            cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)))
+variants = {}
+for name, tpi, lib, t_start, proc in procs:
+    log, _ = proc.communicate()
+    print(f"sweep build {name} TPI={tpi}: rc {proc.returncode}, {time.perf_counter() - t_start:.1f} s;"
+          f" ptxas {ptxas_line(log)}", flush=True)
+    if proc.returncode != 0:
+        print(log[-4000:])
+        bad.append(f"build {name} TPI={tpi}")
+        continue
+    fn = ctypes.CDLL(lib)["fts_" + name]
+    fn.argtypes = [ctypes.c_void_p] * 3 + [ctypes.c_int, ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    variants[(name, tpi)] = fn
+pool1 = torch.from_numpy(cv.encode_points(g1e[:8]))
+pool2 = torch.from_numpy(cv2.encode_points(g2e[:8]))
+sweep = {}
+for name, (_, rows_list, reps) in SWEEP.items():
+    pool, wrapper = (pool1, st.g1_mul_rows) if name == "g1_mul" else (pool2, st.g2_mul_rows)
+    for rows in rows_list:
+        pts = pool[torch.randint(0, 8, (rows,), generator=torch.Generator().manual_seed(rows))]
+        pts = lifted(pts, range(0, rows, 7)).to(dev)
+        ks = torch.from_numpy(cv.encode_scalars([rng.randrange(hm.R) for _ in range(rows)])).to(dev)
+        want = wrapper(pts, ks)
+        for tpi in (1, 2, 4, 8):
+            fn = variants.get((name, tpi))
+            if fn is None:
+                continue
+            out = torch.empty_like(want)
+            stream = torch.cuda.current_stream().cuda_stream
+
+            def call():
+                rc = fn(pts.data_ptr(), ks.data_ptr(), out.data_ptr(), rows, stream)
+                if rc:
+                    raise RuntimeError(f"{name} TPI={tpi}: CUDA error {rc}")
+
+            call()
+            torch.cuda.synchronize()
+            chk(f"sweep {name} TPI={tpi} {rows} rows vs the built kernel", out, want)
+            start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+            start.record()
+            for _ in range(reps):
+                call()
+            end.record()
+            torch.cuda.synchronize()
+            sweep[(name, tpi, rows)] = start.elapsed_time(end) / reps
+            print(f"sweep {name} TPI={tpi} {rows} rows: {sweep[(name, tpi, rows)]:.4f} ms", flush=True)
+print("sweep ms", {f"{n} TPI={t} rows={r}": round(v, 4) for (n, t, r), v in sweep.items()},
+      flush=True)
+
+cuobjdump = os.path.join(os.path.dirname(_build.find_nvcc()), "cuobjdump")
+
+
+def write_sass(source):
+    path = os.path.join(out_dir, source.replace(".cu", ".sass"))
+    lib = glob.glob(os.path.join(_build.BUILD_DIR, source.replace(".cu", "-*.so")))
+    if lib and os.path.exists(cuobjdump):
+        with open(path, "w") as fh:
+            subprocess.run([cuobjdump, "-sass", lib[0]], stdout=fh, stderr=subprocess.STDOUT,
+                           check=False)
+    return path
+
+
+def code_summary(path, start_pat, pats):
+    if not os.path.exists(path):
+        print("no", path)
+        return
+    text = open(path).read()
+    for m in re.finditer(start_pat, text):
+        body = text[m.start():]
+        nxt = re.search(start_pat, body[1:])
+        body = body[: nxt.start() + 1] if nxt else body
+        print(path, m.group(0)[:80], ", ".join(
+            f"{what} {len(re.findall(pat, body))}" for what, pat in pats.items()), flush=True)
+
+
+SASS_PATS = {"LDG": r"\bLDG", "predicated LDG": r"@!?P\d\s+LDG", "LDS": r"\bLDS",
+             "predicated LDS": r"@!?P\d\s+LDS", "BRA": r"\bBRA\b",
+             "predicated BRA": r"@!?P\d\s+BRA", "SHFL": r"\bSHFL", "VOTE": r"\bVOTE"}
+for source in ("g1_mul.cu", "g2_mul.cu"):
+    code_summary(write_sass(source), r"Function : \S+", SASS_PATS)
+if args.ladder:
+    print("failed:", bad)
+    sys.exit(1 if bad else 0)
+g1 = [hm.g1_mul(hm.G1_GEN, rng.randrange(1, hm.R)) for _ in range(3)] + [None]
+g2 = [hm.g2_mul(hm.G2_GEN, rng.randrange(1, hm.R)) for _ in range(3)]
 p = torch.from_numpy(cv.encode_points(g1))
 chk("g1_to_affine", st.g1_to_affine_rows(p.to(dev)), st.g1_to_affine_plain(p))
 A = [g2[0], g2[0], g2[0], None, None, g2[1]]
@@ -205,37 +352,13 @@ if got != [True] * 6 + [False]:
     bad.append("ps")
 
 # the select kernel's code: PTX from nvcc, SASS from the built library
-out_dir = sys.argv[1] if len(sys.argv) > 1 else "probe_out"
-os.makedirs(out_dir, exist_ok=True)
-ptx, sass = os.path.join(out_dir, "g1_msm.ptx"), os.path.join(out_dir, "g1_msm.sass")
+ptx = os.path.join(out_dir, "g1_msm.ptx")
 src = os.path.join(_build.CSRC, "g1_msm.cu")
 subprocess.run([_build.find_nvcc(), "-gencode=arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
                 f"-I{_build.CSRC}", "-ptx", "-o", ptx, src], check=False)
-lib = glob.glob(os.path.join(_build.BUILD_DIR, "g1_msm-*.so"))
-cuobjdump = os.path.join(os.path.dirname(_build.find_nvcc()), "cuobjdump")
-if lib and os.path.exists(cuobjdump):
-    with open(sass, "w") as fh:
-        subprocess.run([cuobjdump, "-sass", lib[0]], stdout=fh, stderr=subprocess.STDOUT,
-                       check=False)
-
-
-def code_summary(path, start_pat, load_pat, pred_load_pat, branch_pat):
-    if not os.path.exists(path):
-        print("no", path)
-        return
-    text = open(path).read()
-    for m in re.finditer(start_pat, text):
-        body = text[m.start():]
-        nxt = re.search(start_pat, body[1:])
-        body = body[: nxt.start() + 1] if nxt else body
-        print(path, m.group(0)[:80], "loads", len(re.findall(load_pat, body)),
-              "predicated loads", len(re.findall(pred_load_pat, body)),
-              "branches", len(re.findall(branch_pat, body)), flush=True)
-
-
-code_summary(ptx, r"\.entry \S+", r"ld\.global", r"@%p\d+\s+ld\.global",
-             r"\bbra")
-code_summary(sass, r"Function : \S+", r"LDG", r"@!?P\d\s+LDG", r"\bBRA\b")
+code_summary(ptx, r"\.entry \S+", {"loads": r"ld\.global", "predicated loads": r"@%p\d+\s+ld\.global",
+                                    "branches": r"\bbra"})
+code_summary(write_sass("g1_msm.cu"), r"Function : \S+", SASS_PATS)
 print("launches", {k.name: k.launches for k in _build.ALL_KERNELS})
 print("failed:", bad)
 sys.exit(1 if bad else 0)

@@ -65,8 +65,10 @@ from __future__ import annotations
 
 import argparse
 import json
+import contextlib
 import os
 import random
+import re
 import statistics
 import subprocess
 import sys
@@ -156,6 +158,10 @@ PROVE_WF_LAUNCHES = {**{k: 0 for k in PROVE_LAUNCHES}, "g1_msm_select": 1}
 PS_LAUNCHES = {**{k: 0 for k in PROVE_LAUNCHES}, "g2_mul": 1, "g2_add": 2, "g2_to_affine": 1,
                "miller": 1, "gt_product": 1, "final_exp": 1}
 PROVE_REPS = (5, 3)  # block, batch
+# a scalar whose 4-bit digits are all 15 below a zero top digit: every
+# window of the ladder adds the table's last entry
+LADDER_EDGE_K = 16 ** 63 - 1
+LADDERS = ("g1_mul", "g2_mul")  # the window ladder's kernels (csrc/bn254_ladder.cuh)
 PS_SIGS = 64
 REPLACES = {
     "g1_msm": "fabric_token_sdk_tpu/ops/stages.py:61",
@@ -286,8 +292,20 @@ def main() -> int:
         for i, ln in enumerate(lines):
             if "Compiling entry function" in ln:  # the kernel's own properties follow
                 regs.append(f"{src}: " + " ".join(x.split(":", 1)[-1].strip() for x in lines[i + 2:i + 4]))
-    say("build", f"{len(_build.SOURCES)} sources with nvcc sm_90a in {t_build:.1f} s; "
-        + " | ".join(regs))
+    say("build", f"{len(_build.SOURCES)} sources with nvcc sm_90a in {t_build:.1f} s ("
+        + ", ".join(f"{src} {sec:.1f} s" for src, sec in sorted(
+            _build.BUILD_SECONDS.items(), key=lambda x: -x[1])) + "); " + " | ".join(regs))
+
+    def ptxas_of(source: str) -> str:
+        """The stack/spill and register lines of a source's one entry point."""
+        lines = _build.BUILD_LOG.get(source, "").splitlines()
+        return " | ".join(" ".join(x.split(":", 1)[-1].strip() for x in lines[i + 2:i + 4])
+                          for i, ln in enumerate(lines) if "Compiling entry function" in ln)
+
+    def lanes_of(name: str) -> int:
+        """The TPI a ladder kernel is built with (its source's default)."""
+        with open(os.path.join(_build.CSRC, f"{name}.cu")) as fh:
+            return int(re.search(rf"#define FTS_{name.upper()}_TPI (\d+)", fh.read()).group(1))
 
     def timed(fn, reps: int) -> float:
         """Mean ms per call over `reps` calls, after a warm-up call."""
@@ -366,10 +384,11 @@ def main() -> int:
                     msm_products(ks[r * nb:(r + 1) * nb] for r in range(rows)),
                     tab.numel() * 4 + rows * (nb * SCALAR_BYTES + POINT_BYTES))
                 stats.setdefault("g1_msm", {})[rows] = (ms, p_ms, max_abs_err(got, want), bound)
-        # g1_mul: scalars 0, 1, r-1 and an infinite point, some rows redundant
-        pts = rand_points(rows, [pool[0], pool[1], pool[2], None])
+        # g1_mul: scalars 0, 1, r-1, every digit 15 below the top, an
+        # infinite point, some rows redundant
+        pts = rand_points(rows, [pool[0], pool[1], pool[2], pool[3], None])
         ks = [rng.randrange(hm.R) for _ in range(rows)]
-        ks[:4] = [0, 1, hm.R - 1, 5]
+        ks[:5] = [0, 1, hm.R - 1, LADDER_EDGE_K, 5]
         pw = redundant(torch.from_numpy(cv.encode_points(pts)), range(4, 12)).to(dev)
         kw = torch.from_numpy(cv.encode_scalars(ks)).to(dev)
         got = st.g1_mul_rows(pw, kw)
@@ -413,9 +432,9 @@ def main() -> int:
     g1j = redundant(g1j, range(2, 8))
     check("g1_to_affine", st.g1_to_affine_rows(g1j), st.g1_to_affine_plain(g1j))
     q0, q1 = pool2[0], pool2[1]
-    g2p = redundant(torch.from_numpy(cv2.encode_points(rand_points(n, [q0, q1, q0, None], pool2))).to(dev),
-                    range(4, 9))
-    ks = [0, 1, hm.R - 1, 5] + [rng.randrange(hm.R) for _ in range(n - 4)]
+    g2p = redundant(torch.from_numpy(cv2.encode_points(
+        rand_points(n, [q0, q1, q0, q1, None], pool2))).to(dev), range(4, 9))
+    ks = [0, 1, hm.R - 1, LADDER_EDGE_K, 5] + [rng.randrange(hm.R) for _ in range(n - 5)]
     g2k = torch.from_numpy(cv.encode_scalars(ks)).to(dev)
     g2m = st.g2_mul_rows(g2p, g2k)
     check("g2_mul", g2m, st.g2_mul_plain(g2p, g2k))
@@ -449,8 +468,8 @@ def main() -> int:
           pr.pairing_product_staged(Ps.cpu(), Qs.cpu(), inf_mask=mask.numpy()).to(dev))
     say("edges", f"g1_to_affine, g2_mul, g2_add, g2_to_affine ({n} rows), miller ({legs} legs), "
         f"gt_product, final_exp and a masked pairing product equal their plain versions "
-        f"exactly on infinity operands, P+P, P-P, scalars 0/1/r-1, a (0, 0) leg, GT one and "
-        f"values in [p, 2p)")
+        f"exactly on infinity operands, P+P, P-P, scalars 0/1/r-1/16^63-1, a (0, 0) leg, GT "
+        f"one and values in [p, 2p)")
 
     # ---------------------------------------------------------------- slice
     t0 = time.perf_counter()
@@ -670,7 +689,34 @@ def main() -> int:
             fail(f"a {len(txs)}-tx 2-in/2-out verify launched {counts}, expected {RANGE_LAUNCHES}")
         return got, wall, counts, dict(captured)
 
-    got_rblock, t_rblock, launches_r, inputs_block = verify_counted(rblock)
+    # every g1_mul and g2_mul call of the block verify and of the block and
+    # batch proves, inputs and output, held against the plain versions in
+    # the ladder phase
+    ladder_calls = {name: [] for name in LADDERS}
+
+    @contextlib.contextmanager
+    def recording_ladders(tag):
+        saved = {name: getattr(st, f"{name}_rows") for name in LADDERS}
+
+        def recorder(name):
+            fn = saved[name]
+
+            def wrapper(*a):
+                out = fn(*a)
+                ladder_calls[name].append((tag, tuple(x.clone() for x in a), out.clone()))
+                return out
+            return wrapper
+
+        for name in LADDERS:
+            setattr(st, f"{name}_rows", recorder(name))
+        try:
+            yield
+        finally:
+            for name, fn in saved.items():
+                setattr(st, f"{name}_rows", fn)
+
+    with recording_ladders("verify"):
+        got_rblock, t_rblock, launches_r, inputs_block = verify_counted(rblock)
     got_rbatch, t_rbatch, launches_rb, inputs_batch = verify_counted(rbatch)
     if got_rblock.tolist() != host_r:
         fail(f"2-in/2-out block verdicts {got_rblock.tolist()} differ from the host verifier's")
@@ -818,8 +864,10 @@ def main() -> int:
             fail(f"a {len(reqs)}-tx prove launched {counts}, expected {expect}")
         return proofs, wall, counts, captured
 
-    proofs_block, t_pblock, launches_p, pin_block = prove_counted(preq_block, PROVE_LAUNCHES)
-    proofs_batch, t_pbatch, launches_pb, pin_batch = prove_counted(preq_batch, PROVE_LAUNCHES)
+    with recording_ladders("prove block"):
+        proofs_block, t_pblock, launches_p, pin_block = prove_counted(preq_block, PROVE_LAUNCHES)
+    with recording_ladders("prove batch"):
+        proofs_batch, t_pbatch, launches_pb, pin_batch = prove_counted(preq_batch, PROVE_LAUNCHES)
     proofs_wf, t_pwf, launches_pwf, _ = prove_counted(preq_wf, PROVE_WF_LAUNCHES)
 
     # acceptance: the host verifier on every proof of the 64-tx groups,
@@ -955,6 +1003,56 @@ def main() -> int:
         + ", ".join(f"{v['rows']} rows select {v['select_zero']:.3f} / {v['select_random']:.3f}, "
                     f"gather {v['gather_zero']:.3f} / {v['gather_random']:.3f}"
                     for v in zero_random.values()) + f" [{card}]")
+
+    # ---------------------------------------------------------------- ladder
+    # g1_mul and g2_mul (the window ladder, TPI lanes a row): every call of
+    # the block verify and of both proves against the plain version in
+    # one plain call a kernel; each kernel's ptxas line, its times at the
+    # path's rows beside the bound, and its share of that bound
+    ladder = {}
+    for name in LADDERS:
+        calls = ladder_calls[name]
+        pts = torch.cat([a[0] for _, a, _ in calls])
+        ks = torch.cat([a[1] for _, a, _ in calls])
+        got = torch.cat([o for _, _, o in calls])
+        want, p_ms = plain_timed(lambda: getattr(st, f"{name}_plain")(pts, ks))
+        if not torch.equal(got, want):
+            fail(f"{name} disagrees with its plain version on the verify's and prove's inputs "
+                 f"(max |err| {max_abs_err(got, want)})")
+        prove_args = [a for tag, a, _ in calls if tag == "prove batch"][0]
+        fin = finite(prove_args[0])
+        ks_p = lb.batch_words_to_ints(prove_args[1])
+        if name == "g1_mul":
+            rows_b, rows_B = BLOCK_TXS * ROWS_PER_TX, BATCH_TXS * ROWS_PER_TX
+            ms_b, ms_B = stats[name][rows_b][0], stats[name][rows_B][0]
+            bound_b, bound_B = stats[name][rows_b][3][0], stats[name][rows_B][3][0]
+            prove_bound = bound_ms(mul_products(fin, ks_p), prove_args[1].shape[0]
+                                   * (2 * POINT_BYTES + SCALAR_BYTES))
+        else:
+            v = range_stats[name]
+            rows_b, rows_B, ms_b, ms_B = v["rows_block"], v["rows_batch"], v["ms_block"], v["ms_batch"]
+            bound_b, bound_B = v["bound_block"][0], v["bound_batch"][0]
+            prove_bound = bound_ms(mul_products(fin, ks_p, G2_MULS_WINDOW_TABLE, G2_MULS_DOUBLE,
+                                                G2_MULS_ADD), prove_args[1].shape[0]
+                                   * (2 * G2_BYTES + SCALAR_BYTES))
+        fn = getattr(st, f"{name}_rows")
+        ladder[name] = {
+            "tpi": lanes_of(name), "ptxas": ptxas_of(f"{name}.cu"),
+            "calls_checked": len(calls), "rows_checked": pts.shape[0], "plain_ms": p_ms,
+            "rows_block": rows_b, "rows_batch": rows_B, "ms_block": ms_b, "ms_batch": ms_B,
+            "bound_block": bound_b, "bound_batch": bound_B,
+            "share_block": bound_b / ms_b, "share_batch": bound_B / ms_B,
+            "prove_rows": prove_args[1].shape[0], "prove_ms": timed(lambda: fn(*prove_args), 5),
+            "prove_bound": prove_bound[0],
+        }
+    say("ladder", "; ".join(
+        f"{name} (TPI {v['tpi']}; ptxas {v['ptxas']}): {v['rows_block']}/{v['rows_batch']} rows "
+        f"{v['ms_block']:.4f}/{v['ms_batch']:.4f} ms, bound {v['bound_block']:.4f}/"
+        f"{v['bound_batch']:.4f} ms, {100 * v['share_block']:.2f}%/{100 * v['share_batch']:.2f}% "
+        f"of bound; the 1,024-tx prove's {v['prove_rows']} rows {v['prove_ms']:.4f} ms (bound "
+        f"{v['prove_bound']:.4f}); {v['calls_checked']} calls of the 64-tx verify and the "
+        f"proves ({v['rows_checked']} rows) equal the plain version exactly "
+        f"(plain {v['plain_ms']:.0f} ms)" for name, v in ladder.items()) + f" [{card}]")
 
     prove_medians = medians("2-in/2-out", zip((preq_block, preq_batch), PROVE_REPS), run=prove,
                             what="prove")
@@ -1276,6 +1374,8 @@ def main() -> int:
             "plain_ms_at_256_rows": stats[k.name][small][1],
             "bound_ms_at_256_rows": stats[k.name][small][3][0],
         })
+        if k.name in ladder:
+            kernels[-1].update({x: ladder[k.name][x] for x in ("tpi", "ptxas", "share_batch")})
     for name in RANGE_KERNELS:
         v, k = range_stats[name], kernels_by_name[name]
         kernels.append({
@@ -1289,6 +1389,8 @@ def main() -> int:
             "rows": v["rows_batch"], "ms_block": v["ms_block"], "rows_block": v["rows_block"],
             "bound_ms_block": v["bound_block"][0], "plain_rows": v["rows_block"],
         })
+        if name in ladder:
+            kernels[-1].update({x: ladder[name][x] for x in ("tpi", "ptxas", "share_batch")})
     # the prove path's own rows: the select multiexp (its WF call, 3 bases,
     # stands for it; every call is listed), the add, the K = 2 product
     sources = {"g1_msm_select": "g1_msm.cu", "g1_add": "g1_addsub.cu",

@@ -1,73 +1,72 @@
-// g1_mul: variable-base scalar multiplication [k]P, one thread per row.
+// g1_mul: variable-base scalar multiplication [k]P, each row spread over
+// a group of TPI lanes of a warp.
 //
 // Replaces the JAX program g1_mul_tile (fabric_token_sdk_tpu/ops/
-// curve.py:scalar_mul): 256 MSB-first steps over the canonical
-// (non-Montgomery) scalar, each a doubling, an addition of P, and a
-// select of the sum where the bit is set. The addition is computed on
-// every step and selected, as in the reference, so the instruction
-// stream and memory traffic do not depend on the scalar: the prove
-// plane can reuse this kernel with secret scalars.
+// curve.py:scalar_mul, a 256-step bit ladder) by the 4-bit window
+// ladder of bn254_ladder.cuh: a per-row table [0]P .. [15]P in shared
+// memory, then 64 windows MSB-first, each 4 doublings and one addition
+// of the entry read by a masked scan of all 16. No address, branch or
+// predicate depends on a digit, so the prove plane's secret scalars are
+// safe here. The result is the group element the reference computes,
+// with another Jacobian Z; the plain version (ops/curve.py:window_mul)
+// runs the same ladder and equals this kernel bit for bit.
 //
 // Layout: points (n, 3, 8) Montgomery Jacobian, coordinates in [0, 2p);
 // scalars (n, 8) canonical words; out (n, 3, 8) canonical Montgomery.
 //
-// What bounds it on the H100: integer multiplies, 256 x (7 + 23) CIOS
-// products a row, with 120 bytes read and 96 written. The accumulator
-// and P stay in registers for the whole ladder. One thread per row
-// leaves most of the card idle at the verify path's row counts (known
-// gap; a later change can split the ladder into windows across threads).
-#include "bn254_g1.cuh"
+// What bounds it on the H100: integer multiplies, about 3,520 CIOS
+// products a row (table: a doubling and 13 additions; ladder: 63 x (4
+// doublings + 1 addition), an addition 23 with the doubling it selects
+// away, a doubling 7), with 120 bytes read and 96 written. The design
+// fills the card: TPI lanes a row (TPI = 4, from the sweep of
+// chip_probe.py over 1, 2, 4, 8) give 4x the warps of one thread a row,
+// and a lane keeps 2 words of each element, so a point and the
+// formulas' temporaries stay in registers. 1.5 KB of table a row.
+#include "bn254_ladder.cuh"
 
 using namespace bn254;
 
-namespace {
-
-__device__ __forceinline__ void g1_mul_row(const uint32_t* __restrict__ points,
-                                           const uint32_t* __restrict__ scalars,
-                                           uint32_t* __restrict__ out, int row) {
-  const G1 p = g1_load(points + (size_t)row * G1_WORDS);
-  const uint32_t* k = scalars + (size_t)row * NW;
-  G1 acc = g1_infinity();
-#pragma unroll 1
-  for (int wi = NW - 1; wi >= 0; --wi) {
-    uint32_t word = __ldg(k + wi);
-#pragma unroll 1
-    for (int bi = 31; bi >= 0; --bi) {
-      acc = g1_double(acc);
-      G1 sum = g1_add(acc, p);
-      acc = g1_select(0u - ((word >> bi) & 1u), sum, acc);
-    }
-  }
-  g1_store_canon(out + (size_t)row * G1_WORDS, acc);
-}
-
-}  // namespace
+#ifndef FTS_G1_MUL_TPI
+#define FTS_G1_MUL_TPI 4  // lanes a row (chip_probe.py overrides it for its sweep)
+#endif
 
 #ifdef FTS_HOST_CHECK
 extern "C" void host_g1_mul(const uint32_t* points, const uint32_t* scalars, uint32_t* out,
                             int n) {
-  for (int row = 0; row < n; ++row) g1_mul_row(points, scalars, out, row);
+  coop::host_ladder<coop::CurveG1>(points, scalars, out, n, 1);
+}
+
+// the same rows by emulated groups of tpi lanes (2, 4 or 8)
+extern "C" void host_g1_mul_lanes(const uint32_t* points, const uint32_t* scalars,
+                                  uint32_t* out, int n, int tpi) {
+  coop::host_ladder<coop::CurveG1>(points, scalars, out, n, tpi);
+}
+
+// the ladder's cooperative field alone (mul, add, sub, is_zero) by groups
+// of tpi lanes, for edge values
+extern "C" void host_ladder_field(const uint32_t* a, const uint32_t* b, uint32_t* out, int n,
+                                  int tpi) {
+  coop::host_field(a, b, out, n, tpi);
 }
 #else
-#include <cuda_runtime.h>
-
 namespace {
-constexpr int THREADS = 128;
+constexpr int TPI = FTS_G1_MUL_TPI;
+constexpr int THREADS = 32;  // one warp a block: 32 / TPI rows
 
-__global__ void g1_mul_kernel(const uint32_t* __restrict__ points,
-                              const uint32_t* __restrict__ scalars,
-                              uint32_t* __restrict__ out, int n) {
-  int row = blockIdx.x * blockDim.x + threadIdx.x;
-  if (row < n) g1_mul_row(points, scalars, out, row);
+__global__ void __launch_bounds__(THREADS) g1_mul_kernel(const uint32_t* __restrict__ points,
+                                                         const uint32_t* __restrict__ scalars,
+                                                         uint32_t* __restrict__ out, int n) {
+  extern __shared__ uint32_t tables[];
+  const coop::Group<TPI> g(threadIdx.x % 32);
+  const int row = (int)((blockIdx.x * blockDim.x + threadIdx.x) / TPI);
+  const bool live = row < n;  // a clamped group still takes part in every shuffle
+  coop::ladder_row<coop::CurveG1<TPI>, TPI>(g, points, scalars, out, live ? row : n - 1, live,
+                                            tables + threadIdx.x, THREADS);
 }
 }  // namespace
 
-extern "C" int fts_g1_mul(const void* points, const void* scalars, void* out,
-                          int n, void* stream) {
-  if (n <= 0) return 0;
-  int blocks = (n + THREADS - 1) / THREADS;
-  g1_mul_kernel<<<blocks, THREADS, 0, (cudaStream_t)stream>>>(
-      (const uint32_t*)points, (const uint32_t*)scalars, (uint32_t*)out, n);
-  return (int)cudaGetLastError();
+extern "C" int fts_g1_mul(const void* points, const void* scalars, void* out, int n,
+                          void* stream) {
+  return coop::launch_ladder<TPI, 3, THREADS>(g1_mul_kernel, points, scalars, out, n, stream);
 }
 #endif

@@ -13,3 +13,74 @@
 #define __forceinline__ inline
 #define __ldg(ptr) (*(ptr))
 #define FTS_NOINLINE __attribute__((noinline))
+
+// Lockstep emulation of a lane group, for the cooperative ladder of
+// bn254_ladder.cuh at TPI > 1: each lane of a row runs the row function
+// as a coroutine (ucontext) on one host thread, and an exchange (what a
+// shuffle or a ballot is on the card) lets every lane post a value and
+// read all of them before any lane goes on. Valid because a group's
+// lanes take the same path through the code, as on the card.
+#include <ucontext.h>
+
+#include <vector>
+
+namespace fts_host {
+
+constexpr int MAX_LANES = 8;
+constexpr size_t LANE_STACK = 1 << 20;
+
+struct Lanes {
+  int tpi = 1, cur = 0, done = 0;
+  ucontext_t main, ctx[MAX_LANES];
+  uint32_t slot[MAX_LANES];
+  void (*body)(int lane, void* arg) = nullptr;
+  void* arg = nullptr;
+};
+
+inline Lanes& lanes() {
+  static thread_local Lanes state;
+  return state;
+}
+
+// hand over to the next lane; back here after a full round
+inline void pass() {
+  Lanes& s = lanes();
+  int me = s.cur;
+  s.cur = (me + 1) % s.tpi;
+  swapcontext(&s.ctx[me], &s.ctx[s.cur]);
+}
+
+// every lane posts v and reads all posted values into all[0..tpi)
+inline void exchange(uint32_t v, uint32_t* all) {
+  Lanes& s = lanes();
+  s.slot[s.cur] = v;
+  pass();  // every lane has posted
+  for (int r = 0; r < s.tpi; ++r) all[r] = s.slot[r];
+  pass();  // every lane has read
+}
+
+inline void lane_entry() {
+  Lanes& s = lanes();
+  int me = s.cur;
+  s.body(me, s.arg);
+  if (++s.done == s.tpi) setcontext(&s.main);
+  s.cur = (me + 1) % s.tpi;
+  setcontext(&s.ctx[s.cur]);
+}
+
+// body(lane, arg) for lanes 0 .. tpi - 1 in lockstep
+inline void run_group(int tpi, void (*body)(int, void*), void* arg) {
+  Lanes& s = lanes();
+  s.tpi = tpi, s.cur = 0, s.done = 0, s.body = body, s.arg = arg;
+  std::vector<char> stacks((size_t)tpi * LANE_STACK);
+  for (int r = 0; r < tpi; ++r) {
+    getcontext(&s.ctx[r]);
+    s.ctx[r].uc_stack.ss_sp = stacks.data() + (size_t)r * LANE_STACK;
+    s.ctx[r].uc_stack.ss_size = LANE_STACK;
+    s.ctx[r].uc_link = &s.main;
+    makecontext(&s.ctx[r], lane_entry, 0);
+  }
+  swapcontext(&s.main, &s.ctx[0]);
+}
+
+}  // namespace fts_host

@@ -22,6 +22,7 @@ import os
 import shutil
 import subprocess
 import threading
+import time
 from typing import Dict, List, Optional
 
 import torch
@@ -34,7 +35,8 @@ SOURCES = (
     "g2_mul.cu", "g2_add.cu", "g2_to_affine.cu", "miller.cu", "gt_product.cu",
     "final_exp.cu", "pairing_fused.cu",
 )
-HEADERS = ("bn254_fp.cuh", "bn254_g1.cuh", "bn254_tower.cuh", "bn254_g2.cuh", "bn254_pairing.cuh")
+HEADERS = ("bn254_fp.cuh", "bn254_g1.cuh", "bn254_tower.cuh", "bn254_g2.cuh", "bn254_pairing.cuh",
+           "bn254_ladder.cuh")
 NVCC_FLAGS = (
     "-gencode=arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
@@ -43,6 +45,7 @@ NVCC_FLAGS = (
 _lock = threading.Lock()
 _libs: Dict[str, ctypes.CDLL] = {}
 BUILD_LOG: Dict[str, str] = {}  # source -> ptxas report of its last build
+BUILD_SECONDS: Dict[str, float] = {}  # source -> wall seconds of its last build
 
 
 def find_nvcc() -> str:
@@ -78,10 +81,20 @@ def build_all() -> Dict[str, ctypes.CDLL]:
             cmd = [find_nvcc(), *NVCC_FLAGS, f"-I{CSRC}", "-o", tmp, os.path.join(CSRC, src)]
             procs.append((src, path, tmp, subprocess.Popen(
                 cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)))
+        start = time.perf_counter()
+
+        def wait(src, proc):  # one thread a build: each records its own end
+            BUILD_LOG[src] = proc.communicate()[0]
+            BUILD_SECONDS[src] = time.perf_counter() - start
+
+        waiters = [threading.Thread(target=wait, args=(src, proc)) for src, _, _, proc in procs]
+        for w in waiters:
+            w.start()
+        for w in waiters:
+            w.join()
         failed: List[str] = []
         for src, path, tmp, proc in procs:
-            out, _ = proc.communicate()
-            BUILD_LOG[src] = out
+            out = BUILD_LOG[src]
             if proc.returncode != 0:
                 failed.append(f"{src}:\n{out}")
                 if os.path.exists(tmp):

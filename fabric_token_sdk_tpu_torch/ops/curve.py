@@ -8,7 +8,10 @@ The group ops here are the plain torch versions that the CUDA kernels
 (`csrc/bn254_g1.cuh` and the `csrc/g1_*.cu` kernels, launched from
 `ops/stages.py`) are held against. They use the reference's formulas
 (dbl-2009-l, add-2007-bl) and its edge-case selects, so a result's
-canonical Jacobian coordinates equal the reference's and the kernels'.
+canonical Jacobian coordinates equal the reference's and the kernels';
+the variable-base `scalar_mul` takes the kernels' 4-bit window ladder
+(`window_mul`), which reaches the reference's group element with
+another Jacobian Z.
 Internally a point is a tuple of three half-word coordinate tensors,
 digit axis first (`ops/field.py`); field products that do not depend on
 each other are stacked into one `FP.mul` call (the 16 products of an
@@ -123,16 +126,40 @@ def add(p: Half3, q: Half3) -> Half3:
     return out
 
 
-def scalar_mul(p: Half3, scalars: torch.Tensor) -> Half3:
-    """[k]P by 256 MSB-first steps of double, add and select; `scalars`
-    are canonical (non-Montgomery) int32 words (N, 8)."""
+def window_mul(p: Half3, scalars: torch.Tensor, dbl, add) -> Half3:
+    """[k]P by the 4-bit fixed window of the g1_mul and g2_mul kernels
+    (`csrc/bn254_ladder.cuh`): the table T[0] = infinity, T[1] = P,
+    T[2] = dbl(P), T[i] = add(T[i-1], P); then acc = T[d63] and, for
+    each window below it MSB-first, acc = add(dbl^4(acc), T[d]).
+    `scalars` are canonical (non-Montgomery) int32 words (N, 8), read as
+    given; `dbl` and `add` are the group's formulas (G1 here, G2 in
+    `curve2`). The same group element as the reference's bit ladder,
+    with another Jacobian Z."""
     k = scalars.to(torch.int64) & 0xFFFFFFFF
-    acc = infinity_half(p[0])
-    for i in range(255, -1, -1):
-        acc = double(acc)
-        bit = ((k[:, i // 32] >> (i % 32)) & 1).bool()
-        acc = _sel(bit, add(acc, p), acc)
+    table = [tuple(torch.zeros_like(c) for c in p), p, dbl(p)]
+    for _ in range(3, WINDOW_SIZE):
+        table.append(add(table[-1], p))
+    stacked = [torch.stack([t[c] for t in table]) for c in range(3)]  # (16, limbs, N, ...)
+
+    def pick(w: int) -> Half3:
+        digit = (k[:, w // 8] >> (WINDOW_BITS * (w % 8))) & (WINDOW_SIZE - 1)
+        out = []
+        for s in stacked:
+            idx = digit.view((1, 1, -1) + (1,) * (s.dim() - 3)).expand((1,) + s.shape[1:])
+            out.append(torch.gather(s, 0, idx)[0])
+        return tuple(out)
+
+    acc = pick(DIGITS_PER_SCALAR - 1)
+    for w in range(DIGITS_PER_SCALAR - 2, -1, -1):
+        for _ in range(WINDOW_BITS):
+            acc = dbl(acc)
+        acc = add(acc, pick(w))
     return acc
+
+
+def scalar_mul(p: Half3, scalars: torch.Tensor) -> Half3:
+    """[k]P on G1 by the kernels' window ladder (`window_mul`)."""
+    return window_mul(p, scalars, double, add)
 
 
 def msm(table: torch.Tensor, scalars: torch.Tensor, select: bool = False) -> Half3:

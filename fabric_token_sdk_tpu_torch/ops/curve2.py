@@ -9,9 +9,11 @@ The group ops here are the plain torch versions that the CUDA kernels
 are held against. They use the reference's formulas (dbl-2009-l,
 add-2007-bl over Fp2) and its edge-case selects in its order, so a
 result's canonical Jacobian coordinates equal the reference's and the
-kernels'. Internally a point is a tuple of three Fp2 half-word tensors
-(16, ..., 2), digit axis first (`ops/field.py`, `ops/tower.py`);
-independent Fp2 products are stacked into one call.
+kernels' (`scalar_mul` takes the kernels' window ladder,
+`curve.window_mul`: the reference's group element, another Z).
+Internally a point is a tuple of three Fp2 half-word tensors (16, ...,
+2), digit axis first (`ops/field.py`, `ops/tower.py`); independent Fp2
+products are stacked into one call.
 """
 
 from __future__ import annotations
@@ -21,7 +23,7 @@ from typing import Sequence, Tuple
 import numpy as np
 import torch
 
-from . import limbs as lb, tower as tw
+from . import curve as cv, limbs as lb, tower as tw
 from .field import FP, half_to_words, words_to_half
 from ..crypto import hostmath as hm
 
@@ -112,15 +114,8 @@ def add(p: Half3, q: Half3) -> Half3:
 
 
 def scalar_mul(p: Half3, scalars: torch.Tensor) -> Half3:
-    """[k]Q by 256 MSB-first steps of double, add and select; `scalars`
-    are canonical (non-Montgomery) int32 words (N, 8)."""
-    k = scalars.to(torch.int64) & 0xFFFFFFFF
-    acc = infinity_half(p[0])
-    for i in range(255, -1, -1):
-        acc = double(acc)
-        bit = ((k[:, i // 32] >> (i % 32)) & 1).bool()
-        acc = _sel(bit, add(acc, p), acc)
-    return acc
+    """[k]Q on G2 by the kernels' window ladder (`curve.window_mul`)."""
+    return cv.window_mul(p, scalars, double, add)
 
 
 def to_affine(p: Half3) -> Tuple[torch.Tensor, torch.Tensor]:

@@ -32,9 +32,12 @@ ENTRY = {  # name: (source in csrc/, symbol, argtypes)
     "g1_msm": ("g1_msm", "host_g1_msm", [_P, _P, _P, _I, _I]),
     "g1_msm_select": ("g1_msm", "host_g1_msm_select", [_P, _P, _P, _I, _I]),
     "g1_mul": ("g1_mul", "host_g1_mul", [_P, _P, _P, _I]),
+    "g1_mul_lanes": ("g1_mul", "host_g1_mul_lanes", [_P, _P, _P, _I, _I]),
+    "ladder_field": ("g1_mul", "host_ladder_field", [_P, _P, _P, _I, _I]),
     "g1_addsub": ("g1_addsub", "host_g1_addsub", [_P, _P, _P, _I, _I]),
     "g1_to_affine": ("g1_to_affine", "host_g1_to_affine", [_P, _P, _I]),
     "g2_mul": ("g2_mul", "host_g2_mul", [_P, _P, _P, _I]),
+    "g2_mul_lanes": ("g2_mul", "host_g2_mul_lanes", [_P, _P, _P, _I, _I]),
     "g2_add": ("g2_add", "host_g2_add", [_P, _P, _P, _I]),
     "g2_to_affine": ("g2_to_affine", "host_g2_to_affine", [_P, _P, _I]),
     "miller": ("miller", "host_miller", [_P, _P, _P, _I]),
@@ -101,16 +104,96 @@ def test_g1_addsub_row_matches_plain_and_hostmath(host, negate_b):
     assert cv.decode_points(out) == want
 
 
-def test_g1_mul_row_matches_plain_and_hostmath(host):
+# scalar edges of the window ladder: 0, 1, r-1, every digit 15 below a
+# zero top digit, a single digit, and random scalars
+LADDER_KS = [0, 1, hm.R - 1, 16 ** 63 - 1, 12345]
+
+
+def _lift(words: torch.Tensor, rows) -> torch.Tensor:
+    """Every 8-word value of the given rows moved from [0, p) into [p, 2p):
+    the same points in the redundant domain."""
+    out = words.clone()
+    flat = out.view(out.shape[0], -1, 8)
+    for r in rows:
+        for c in range(flat.shape[1]):
+            v = lb.words_to_int(flat[r, c].numpy())
+            if v < hm.P:
+                flat[r, c] = torch.from_numpy(lb.int_to_words(v + hm.P))
+    return out
+
+
+@pytest.fixture(scope="module")
+def ladder_rows():
+    """Rows for both ladders, their plain outputs and the host answers:
+    the scalar edges, random scalars, a point at infinity, and rows with
+    every coordinate in [p, 2p)."""
     rng = random.Random(23)
-    pts = _pts(rng, 4) + [None]
-    ks = [0, 1, hm.R - 1, rng.randrange(hm.R), 12345]
-    p = torch.from_numpy(cv.encode_points(pts))
-    k = torch.from_numpy(cv.encode_scalars(ks))
+    rows = {}
+    for name, enc, dec, mul, gen in (("g1", cv.encode_points, cv.decode_points, hm.g1_mul, _pts),
+                                     ("g2", cv2.encode_points, cv2.decode_points, hm.g2_mul, _g2pts)):
+        pts = gen(rng, 5) + [None]
+        ks = LADDER_KS + [rng.randrange(hm.R)]
+        p = _lift(torch.from_numpy(enc(pts)), [1, 4, 5])
+        k = torch.from_numpy(cv.encode_scalars(ks))
+        plain = (st.g1_mul_plain if name == "g1" else st.g2_mul_plain)(p, k)
+        rows[name] = (p, k, plain, [mul(q, s) if q else None for q, s in zip(pts, ks)], dec)
+    return rows
+
+
+def _ladder_row_check(host, ladder_rows, curve):
+    p, k, plain, want, dec = ladder_rows[curve]
     out = torch.empty_like(p)
-    host["g1_mul"](p.data_ptr(), k.data_ptr(), out.data_ptr(), len(ks))
-    assert torch.equal(out, st.g1_mul_plain(p, k))
-    assert cv.decode_points(out) == [hm.g1_mul(q, s) if q else None for q, s in zip(pts, ks)]
+    host[f"{curve}_mul"](p.data_ptr(), k.data_ptr(), out.data_ptr(), k.shape[0])
+    assert torch.equal(out, plain)
+    assert dec(out) == want
+
+
+def test_g1_mul_row_matches_plain_and_hostmath(host, ladder_rows):
+    """The G1 ladder row function (one lane a row) on the edge rows:
+    equal to the windowed plain version exactly, to hostmath as points."""
+    _ladder_row_check(host, ladder_rows, "g1")
+
+
+def test_g2_mul_row_matches_plain_and_hostmath(host, ladder_rows):
+    """The G2 ladder row function on the edge rows, likewise."""
+    _ladder_row_check(host, ladder_rows, "g2")
+
+
+@pytest.mark.parametrize("curve,tpi", [("g1", 2), ("g1", 4), ("g1", 8), ("g2", 2), ("g2", 4),
+                                       ("g2", 8)])
+def test_ladder_rows_by_lane_groups_match_plain(host, ladder_rows, curve, tpi):
+    """The same rows with each row spread over an emulated group of tpi
+    lanes, whose shuffles and ballots carry words and carries between
+    the lanes: bit for bit the plain version's output."""
+    p, k, plain, _, _ = ladder_rows[curve]
+    n = 4 if tpi == 8 else k.shape[0]  # the slowest emulation on its first rows
+    out = torch.empty_like(p[:n])
+    host[f"{curve}_mul_lanes"](p.data_ptr(), k.data_ptr(), out.data_ptr(), n, tpi)
+    assert torch.equal(out, plain[:n])
+
+
+@pytest.mark.parametrize("tpi", [1, 2, 4, 8])
+def test_ladder_field_by_lane_groups_matches_plain(host, tpi):
+    """The ladder's cooperative field (Montgomery product, add, sub,
+    is_zero) on values whose words are all ones or all zeros across whole
+    lanes, so that carries and borrows run through the lookahead, and on
+    [p, 2p) and random values: equal to fp_ops's plain version."""
+    rng = random.Random(40 + tpi)
+    P = hm.P
+    ones = [(1 << (32 * j)) - 1 for j in range(1, 8)]
+    powers = [1 << (32 * j) for j in range(1, 8)]
+    mont_one = (1 << 256) % P
+    xs = ([0, 1, P - 1, P, P + 1, 2 * P - 1] + ones + powers + ones + [o - 5 for o in ones]
+          + ones + [rng.randrange(2 * P) for _ in range(16)])
+    ys = ([2 * P - 1, P, 0, 1, P - 1, P + 3] + [1] * 14 + ones[::-1] + [5] * 7 + [mont_one] * 7
+          + [rng.randrange(2 * P) for _ in range(16)])
+    a = torch.from_numpy(lb.ints_to_words(xs))
+    b = torch.from_numpy(lb.ints_to_words(ys))
+    out = torch.empty((len(xs), 4, 8), dtype=torch.int32)
+    host["ladder_field"](a.data_ptr(), b.data_ptr(), out.data_ptr(), len(xs), tpi)
+    assert torch.equal(out[:, :3], fd.fp_ops_plain(a, b)[:, :3])
+    zero = torch.tensor([x % P == 0 for x in xs])
+    assert torch.equal(out[:, 3], torch.where(zero, -1, 0).to(torch.int32)[:, None].expand(-1, 8))
 
 
 @pytest.mark.parametrize("nbases", [1, 3])
@@ -178,18 +261,6 @@ def test_g2_add_and_to_affine_rows_match_plain_and_hostmath(host):
     host["g2_to_affine"](out.data_ptr(), aff.data_ptr(), len(A))
     assert torch.equal(aff, st.g2_to_affine_plain(out))
     assert torch.equal(aff, torch.from_numpy(pr.encode_g2(want)))
-
-
-def test_g2_mul_row_matches_plain_and_hostmath(host):
-    rng = random.Random(27)
-    pts = _g2pts(rng, 3) + [None]
-    ks = [0, 1, hm.R - 1, rng.randrange(hm.R)]
-    p = torch.from_numpy(cv2.encode_points(pts))
-    k = torch.from_numpy(cv.encode_scalars(ks))
-    out = torch.empty_like(p)
-    host["g2_mul"](p.data_ptr(), k.data_ptr(), out.data_ptr(), len(ks))
-    assert torch.equal(out, st.g2_mul_plain(p, k))
-    assert cv2.decode_points(out) == [hm.g2_mul(q, s) if q else None for q, s in zip(pts, ks)]
 
 
 def test_pairing_rows_match_plain_and_hostmath(host):

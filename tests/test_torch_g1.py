@@ -3,8 +3,11 @@
 edge cases: scalars 0, 1 and r-1, points at infinity, P+P, P-P, P+(-P),
 and coordinates given in the redundant range [p, 2p).
 
-Same inputs go to both packages; results must be equal canonical
-Jacobian coordinates (the formulas and selects are the reference's)."""
+Same inputs go to both packages. The add and sub results must be equal
+canonical Jacobian coordinates (the formulas and selects are the
+reference's); `g1_mul` takes a 4-bit window ladder where the reference
+takes a bit ladder, so its results are the reference's group elements
+with another Jacobian Z, compared as affine points."""
 
 import random
 
@@ -45,7 +48,31 @@ def test_g1_mul_rows_matches_reference_and_hostmath():
     got = st.g1_mul_rows(p, k)
     assert cv.decode_points(got) == [hm.g1_mul(q, s) if q else None for q, s in zip(pts, ks)]
     ref_out = ref_st.g1_mul_rows(_ref(p), _ref(k))
-    assert torch.equal(got, lb.from_reference_limbs(ref_out, hm.P))
+    assert cv.decode_points(got) == cv.decode_points(lb.from_reference_limbs(ref_out, hm.P))
+
+
+@pytest.mark.parametrize("case", ["random", "edges"])
+def test_g1_mul_window_plain_matches_reference_as_points(case):
+    """The windowed plain version against the JAX package's bit ladder
+    as group elements (affine, infinity included), on inputs drawn with
+    numpy from a seed: random points and scalars, or the window edges
+    (scalars 0, 1, r-1, every digit 15 below a zero top digit, a single
+    top digit; points at infinity; coordinates in [p, 2p))."""
+    rng = np.random.default_rng(410 if case == "random" else 411)
+    draw = [int.from_bytes(rng.bytes(32), "little") % hm.R for _ in range(12)]
+    pts = [hm.g1_mul(hm.G1_GEN, d or 1) for d in draw[:6]]
+    ks = draw[6:]
+    if case == "edges":
+        pts[4] = None
+        ks = [0, 1, hm.R - 1, 16 ** 63 - 1, 15 << 248, ks[5]]
+    p = torch.from_numpy(cv.encode_points(pts))
+    if case == "edges":
+        p = _lift(p, [1, 3])
+    k = torch.from_numpy(cv.encode_scalars(ks))
+    got = cv.decode_points(st.g1_mul_plain(p, k))
+    assert got == [hm.g1_mul(q, s) if q else None for q, s in zip(pts, ks)]
+    ref_out = lb.from_reference_limbs(ref_st.g1_mul_rows(_ref(p), _ref(k)), hm.P)
+    assert got == cv.decode_points(ref_out)
 
 
 @pytest.mark.parametrize("op", ["sub", "add"])

@@ -6,7 +6,10 @@ infinity, P+P, P-P, P+(-P), and coordinates in the redundant range
 [p, 2p).
 
 Same inputs go to both packages; results must be equal canonical
-coordinates (the formulas and selects are the reference's)."""
+coordinates (the formulas and selects are the reference's), except
+`g2_mul`'s: it takes a 4-bit window ladder where the reference takes a
+bit ladder, so its results are the reference's group elements with
+another Jacobian Z, compared as affine points."""
 
 import random
 
@@ -56,7 +59,30 @@ def test_g2_mul_rows_matches_reference_and_hostmath():
     k = torch.from_numpy(cv.encode_scalars(ks))
     got = st.g2_mul_rows(p, k)
     assert cv2.decode_points(got) == [hm.g2_mul(q, s) if q else None for q, s in zip(pts, ks)]
-    assert torch.equal(got, _from_ref(ref_st.g2_mul_rows(_ref(p), _ref(k))))
+    assert cv2.decode_points(got) == cv2.decode_points(_from_ref(ref_st.g2_mul_rows(_ref(p), _ref(k))))
+
+
+@pytest.mark.parametrize("case", ["random", "edges"])
+def test_g2_mul_window_plain_matches_reference_as_points(case):
+    """The windowed plain version against the JAX package's bit ladder
+    as group elements (affine, infinity included), on inputs drawn with
+    numpy from a seed: random points and scalars, or the window edges
+    (scalars 0, 1, r-1, every digit 15 below a zero top digit; a point
+    at infinity; coordinates in [p, 2p))."""
+    rng = np.random.default_rng(510 if case == "random" else 511)
+    draw = [int.from_bytes(rng.bytes(32), "little") % hm.R for _ in range(8)]
+    pts = [hm.g2_mul(hm.G2_GEN, d or 1) for d in draw[:4]]
+    ks = draw[4:]
+    if case == "edges":
+        pts[3] = None
+        ks = [0, 1, hm.R - 1, 16 ** 63 - 1]
+    p = torch.from_numpy(cv2.encode_points(pts))
+    if case == "edges":
+        p = _lift(p, [1, 2])
+    k = torch.from_numpy(cv.encode_scalars(ks))
+    got = cv2.decode_points(st.g2_mul_plain(p, k))
+    assert got == [hm.g2_mul(q, s) if q else None for q, s in zip(pts, ks)]
+    assert got == cv2.decode_points(_from_ref(ref_st.g2_mul_rows(_ref(p), _ref(k))))
 
 
 def test_g2_add_and_to_affine_rows_match_reference_and_hostmath():

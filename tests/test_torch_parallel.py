@@ -270,10 +270,11 @@ def _schnorr_rows(rng, n):
 
 def test_sharded_schnorr_rows_matches_reference_and_host():
     """com = g^z - pk^c over the 4 row groups of the logical (4, 2) mesh:
-    equal, as canonical Jacobian words, to the JAX package's
-    `sharded_schnorr_rows` on its 8-device mesh, and to the host
-    response equation `sign.response_commitment`; and bit-identical to
-    the port's unsharded rows."""
+    equal, as group elements, to the JAX package's `sharded_schnorr_rows`
+    on its 8-device mesh (pk^c comes from the port's window ladder, the
+    reference's from its bit ladder: same points, another Jacobian Z),
+    and to the host response equation `sign.response_commitment`; and
+    bit-identical to the port's unsharded rows."""
     rng = random.Random(0x5C)
     N = 18
     pks, chals, resps = _schnorr_rows(rng, N)
@@ -295,4 +296,4 @@ def test_sharded_schnorr_rows_matches_reference_and_host():
         np.asarray(ref_cv.encode_scalars(chals)),
         mesh=ref_sh.make_mesh(8, mp=2),
     )
-    assert torch.equal(got, lb.from_reference_limbs(np.asarray(ref), hm.P))
+    assert cv.decode_points(got) == cv.decode_points(lb.from_reference_limbs(np.asarray(ref), hm.P))
