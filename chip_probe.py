@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Quick first call on the GPU after a kernel change: build, check, stop.
 
-    python3 chip_probe.py [OUT_DIR] [--ladder]
+    python3 chip_probe.py [OUT_DIR] [--ladder | --redesign [--sweep all|msm|fexp]]
 
 Builds every CUDA source of the PyTorch port with `nvcc` and prints each
 source's `ptxas -v` report. Then the window ladder of `g1_mul` and
@@ -33,9 +33,17 @@ its loads, predicated loads and branches, beside the same counts for
 `g1_mul` and `g2_mul`. It takes about two minutes
 of command time where `chip_smoke.py` takes six or more: the place to
 find a kernel that does not build or disagrees before the full smoke
-run. Needs one NVIDIA GPU; imports nothing of JAX.
+run. With `--redesign` it instead checks `g1_msm` (both forms) and
+`final_exp` against their plain versions on edge rows (tables and
+values in [p, 2p) too), sweeps g1_msm's lanes a row S in {4, 8, 16, 32}
+(`-DFTS_G1_MSM_S`) and final_exp's G in {1, 2, 4, 8, 16, 32}
+(`-DFTS_FINAL_EXP_G`), each variant held against the built kernel and
+timed at the verify's and the prove's rows, times `g1_mul`/`g2_mul`,
+writes both kernels' SASS with the same counts, and stops. Needs one
+NVIDIA GPU; imports nothing of JAX.
 """
 import argparse
+import ctypes
 import glob
 import os
 import random
@@ -55,6 +63,10 @@ from fabric_token_sdk_tpu_torch.ops import pairing as pr, stages as st, tower as
 ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
 ap.add_argument("out_dir", nargs="?", default="probe_out")
 ap.add_argument("--ladder", action="store_true", help="stop after the ladder checks and sweep")
+ap.add_argument("--redesign", action="store_true",
+                help="g1_msm and final_exp: checks, the S and G sweeps, SASS; then stop")
+ap.add_argument("--sweep", choices=("all", "msm", "fexp"), default="all",
+                help="with --redesign: which kernel's variants to build and time")
 args = ap.parse_args()
 if not torch.cuda.is_available():
     sys.exit("chip_probe.py needs an NVIDIA GPU")
@@ -102,6 +114,181 @@ def lifted(words, rows):
     return out
 
 
+cuobjdump = os.path.join(os.path.dirname(_build.find_nvcc()), "cuobjdump")
+
+
+def write_sass(source, lib=None):
+    path = os.path.join(out_dir, os.path.basename(lib or source).replace(".cu", ".sass")
+                        .replace(".so", ".sass"))
+    libs = [lib] if lib else glob.glob(os.path.join(_build.BUILD_DIR, source.replace(".cu", "-*.so")))
+    if libs and os.path.exists(cuobjdump):
+        with open(path, "w") as fh:
+            subprocess.run([cuobjdump, "-sass", libs[0]], stdout=fh, stderr=subprocess.STDOUT,
+                           check=False)
+    return path
+
+
+def code_summary(path, start_pat, pats):
+    if not os.path.exists(path):
+        print("no", path)
+        return
+    text = open(path).read()
+    for m in re.finditer(start_pat, text):
+        body = text[m.start():]
+        nxt = re.search(start_pat, body[1:])
+        body = body[: nxt.start() + 1] if nxt else body
+        print(path, m.group(0)[:80], ", ".join(
+            f"{what} {len(re.findall(pat, body))}" for what, pat in pats.items()), flush=True)
+
+
+SASS_PATS = {"LDG": r"\bLDG", "predicated LDG": r"@!?P\d\s+LDG", "LDS": r"\bLDS",
+             "predicated LDS": r"@!?P\d\s+LDS", "BRA": r"\bBRA\b",
+             "predicated BRA": r"@!?P\d\s+BRA", "SHFL": r"\bSHFL", "VOTE": r"\bVOTE"}
+
+
+def build_variants(source, defines_list):
+    """Build `source` once per set of -D flags, all nvcc processes at once;
+    returns {defines: (lib path, ptxas line)} for the builds that passed."""
+    procs = []
+    for defines in defines_list:
+        tag = "-".join(f"{k.split('_')[-1]}{v}" for k, v in defines)
+        lib = os.path.join(_build.BUILD_DIR, f"sweep-{source[:-3]}-{tag}.so")
+        cmd = [_build.find_nvcc(), *_build.NVCC_FLAGS, f"-I{_build.CSRC}",
+               *(f"-D{k}={v}" for k, v in defines), "-o", lib, os.path.join(_build.CSRC, source)]
+        procs.append((defines, lib, time.perf_counter(), subprocess.Popen(
+            cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)))
+    built = {}
+    for defines, lib, t_start, proc in procs:
+        log, _ = proc.communicate()
+        print(f"sweep build {source} {dict(defines)}: rc {proc.returncode}, "
+              f"{time.perf_counter() - t_start:.1f} s; ptxas {ptxas_line(log)}", flush=True)
+        if proc.returncode != 0:
+            print(log[-4000:])
+            bad.append(f"build {source} {dict(defines)}")
+            continue
+        built[defines] = (lib, ptxas_line(log))
+    return built
+
+
+def event_ms(call, reps):
+    call()
+    torch.cuda.synchronize()
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(reps):
+        call()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / reps
+
+
+if args.redesign:
+    # ------------------------------------------------------------ g1_msm and final_exp
+    # the built kernels against their plain versions on edge rows, then the
+    # sweeps: g1_msm over S lanes a row, final_exp over G lanes a row,
+    # each variant held against the built kernel
+    # (g1_msm as affine points: another split gives another Jacobian Z)
+    print("ptxas g1_msm.cu:", ptxas_line(_build.BUILD_LOG.get("g1_msm.cu", "")), flush=True)
+    print("ptxas final_exp.cu:", ptxas_line(_build.BUILD_LOG.get("final_exp.cu", "")), flush=True)
+    bases = [hm.g1_mul(hm.G1_GEN, rng.randrange(1, hm.R)) for _ in range(3)]
+    tables = {nb: cv.FixedBaseTable(bases[:nb]).to(dev) for nb in (1, 2, 3)}
+    edges = [0, 1, hm.R - 1, (1 << 256) - 1, 9 << 84, int("fedcba9876543210" * 4, 16)]
+    for nb in (1, 2, 3):
+        rows = [[k] * nb for k in edges] + [[rng.randrange(hm.R) for _ in range(nb)]
+                                            for _ in range(10)]
+        rows[-1][0] = 0
+        sc = torch.from_numpy(lb.ints_to_words([x for r in rows for x in r]).reshape(len(rows), nb, 8))
+        tab = tables[nb].table
+        lifted_tab = lifted(tab.cpu().reshape(-1, 3, 8), range(0, tab.shape[0] * 16, 5)).reshape(
+            tab.shape).to(dev)
+        for name, fn, plain in (("g1_msm", st.g1_msm_rows, st.g1_msm_plain),
+                                ("g1_msm_select", st.g1_msm_select_rows, st.g1_msm_select_plain)):
+            for tag, t_ in (("", tab), (" table in [p, 2p)", lifted_tab)):
+                got = fn(t_, sc.to(dev))
+                chk(f"{name} nbases={nb}{tag} edges", got, plain(t_.cpu(), sc))
+                if not tag:
+                    host = [hm.g1_multiexp(bases[:nb], [x % hm.R for x in r]) for r in rows]
+                    print(f"{name} nbases={nb} hostmath", cv.decode_points(got.cpu()) == host)
+    fvals = [tuple((rng.randrange(hm.P), rng.randrange(hm.P)) for _ in range(6)) for _ in range(30)]
+    fvals[0] = hm.fp12_from_int(1)
+    fw = lifted(torch.from_numpy(tw.encode_fp12(fvals)), range(1, 30, 3))
+    chk("final_exp edges", st.final_exp_rows(fw.to(dev)), st.final_exp_plain(fw))
+
+    g_msm = {} if args.sweep == "fexp" else build_variants(
+        "g1_msm.cu", [(("FTS_G1_MSM_S", s_),) for s_ in (4, 8, 16, 32)])
+    g_fexp = {} if args.sweep == "msm" else build_variants(
+        "final_exp.cu", [(("FTS_FINAL_EXP_G", g_),) for g_ in (1, 2, 4, 8, 16, 32)])
+    stream = torch.cuda.current_stream().cuda_stream
+    msm_cases = [("gather", 256, 3), ("gather", 4096, 3), ("gather", 3968, 1), ("gather", 3968, 2),
+                 ("gather", 1984, 3), ("select", 384, 3), ("select", 6144, 3)]
+    msm_sweep = {}
+    for mode, n_rows, nb in msm_cases:
+        ks = [rng.randrange(hm.R) for _ in range(n_rows * nb)]
+        sc = torch.from_numpy(cv.encode_scalars(ks).reshape(n_rows, nb, 8)).to(dev)
+        tab = tables[nb].table
+        want = (st.g1_msm_rows if mode == "gather" else st.g1_msm_select_rows)(tab, sc)
+        want_aff = st.g1_to_affine_rows(want)
+        for defines, (lib, _) in g_msm.items():
+            fn = ctypes.CDLL(lib)["fts_g1_msm" if mode == "gather" else "fts_g1_msm_select"]
+            fn.argtypes = [ctypes.c_void_p] * 3 + [ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
+            fn.restype = ctypes.c_int
+            out = torch.empty_like(want)
+
+            def call():
+                rc = fn(tab.data_ptr(), sc.data_ptr(), out.data_ptr(), n_rows, nb, stream)
+                if rc:
+                    raise RuntimeError(f"g1_msm {defines}: CUDA error {rc}")
+
+            call()
+            torch.cuda.synchronize()
+            chk(f"sweep g1_msm {mode} {dict(defines)} {n_rows}x{nb} vs the built kernel (affine)",
+                st.g1_to_affine_rows(out), want_aff)
+            msm_sweep[(mode, n_rows, nb, defines)] = event_ms(call, 10)
+            print(f"sweep g1_msm {mode} S={defines[0][1]} {n_rows}x{nb}: "
+                  f"{msm_sweep[(mode, n_rows, nb, defines)]:.4f} ms", flush=True)
+    fexp_sweep = {}
+    for n_rows in (248, 3968):
+        fr = torch.from_numpy(tw.encode_fp12(
+            [fvals[i % len(fvals)] for i in range(n_rows)])).to(dev)
+        want = st.final_exp_rows(fr)
+        for defines, (lib, _) in g_fexp.items():
+            fn = ctypes.CDLL(lib)["fts_final_exp"]
+            fn.argtypes = [ctypes.c_void_p] * 2 + [ctypes.c_int, ctypes.c_void_p]
+            fn.restype = ctypes.c_int
+            out = torch.empty_like(want)
+
+            def call():
+                rc = fn(fr.data_ptr(), out.data_ptr(), n_rows, stream)
+                if rc:
+                    raise RuntimeError(f"final_exp {defines}: CUDA error {rc}")
+
+            call()
+            torch.cuda.synchronize()
+            chk(f"sweep final_exp {dict(defines)} {n_rows} rows vs the built kernel", out, want)
+            fexp_sweep[(n_rows, defines)] = event_ms(call, 3)
+            print(f"sweep final_exp G={defines[0][1]} {n_rows} rows: "
+                  f"{fexp_sweep[(n_rows, defines)]:.4f} ms", flush=True)
+    print("sweep g1_msm ms", {f"{m} {r}x{b} S={d[0][1]}": round(v, 4)
+                              for (m, r, b, d), v in msm_sweep.items()}, flush=True)
+    print("sweep g1_msm ptxas", {f"S={d[0][1]}": p_ for d, (_, p_) in g_msm.items()})
+    print("sweep final_exp ms", {f"{r} G={d[0][1]}": round(v, 4)
+                                 for (r, d), v in fexp_sweep.items()}, flush=True)
+    print("sweep final_exp ptxas", {f"G={d[0][1]}": p_ for d, (_, p_) in g_fexp.items()})
+    # the ladders over the same cooperative field, at the verify's rows
+    for name, fn, enc, gen, n_rows in (
+            ("g1_mul", st.g1_mul_rows, cv.encode_points, hm.G1_GEN, 4096),
+            ("g2_mul", st.g2_mul_rows, cv2.encode_points, hm.G2_GEN, 7936)):
+        mul = hm.g1_mul if name == "g1_mul" else hm.g2_mul
+        pool = torch.from_numpy(enc([mul(gen, rng.randrange(1, hm.R)) for _ in range(8)]))
+        pts = pool[torch.arange(n_rows) % 8].contiguous().to(dev)
+        ks = torch.from_numpy(cv.encode_scalars([rng.randrange(hm.R) for _ in range(n_rows)])).to(dev)
+        print(f"{name} {n_rows} rows: {event_ms(lambda: fn(pts, ks), 5):.4f} ms; ptxas "
+              f"{ptxas_line(_build.BUILD_LOG.get(name + '.cu', ''))}", flush=True)
+    code_summary(write_sass("g1_msm.cu"), r"Function : \S+", SASS_PATS)
+    code_summary(write_sass("final_exp.cu"), r"Function : \S+", SASS_PATS)
+    print("failed:", bad)
+    sys.exit(1 if bad else 0)
+
 # ---------------------------------------------------------------- ladder
 # g1_mul and g2_mul against their plain versions on the edges
 print("ptxas g1_mul.cu:", ptxas_line(_build.BUILD_LOG.get("g1_mul.cu", "")), flush=True)
@@ -118,8 +305,6 @@ chk("g2_mul edges", st.g2_mul_rows(p2.to(dev), ke.to(dev)), st.g2_mul_plain(p2, 
 
 # the sweep: each kernel built at every TPI, held against the built
 # kernel and timed at the verify's rows
-import ctypes  # noqa: E402
-
 SWEEP = {"g1_mul": ("FTS_G1_MUL_TPI", (256, 4096, 7936), 3),
          "g2_mul": ("FTS_G2_MUL_TPI", (496, 7936), 6)}
 procs = []
@@ -179,35 +364,6 @@ for name, (_, rows_list, reps) in SWEEP.items():
 print("sweep ms", {f"{n} TPI={t} rows={r}": round(v, 4) for (n, t, r), v in sweep.items()},
       flush=True)
 
-cuobjdump = os.path.join(os.path.dirname(_build.find_nvcc()), "cuobjdump")
-
-
-def write_sass(source):
-    path = os.path.join(out_dir, source.replace(".cu", ".sass"))
-    lib = glob.glob(os.path.join(_build.BUILD_DIR, source.replace(".cu", "-*.so")))
-    if lib and os.path.exists(cuobjdump):
-        with open(path, "w") as fh:
-            subprocess.run([cuobjdump, "-sass", lib[0]], stdout=fh, stderr=subprocess.STDOUT,
-                           check=False)
-    return path
-
-
-def code_summary(path, start_pat, pats):
-    if not os.path.exists(path):
-        print("no", path)
-        return
-    text = open(path).read()
-    for m in re.finditer(start_pat, text):
-        body = text[m.start():]
-        nxt = re.search(start_pat, body[1:])
-        body = body[: nxt.start() + 1] if nxt else body
-        print(path, m.group(0)[:80], ", ".join(
-            f"{what} {len(re.findall(pat, body))}" for what, pat in pats.items()), flush=True)
-
-
-SASS_PATS = {"LDG": r"\bLDG", "predicated LDG": r"@!?P\d\s+LDG", "LDS": r"\bLDS",
-             "predicated LDS": r"@!?P\d\s+LDS", "BRA": r"\bBRA\b",
-             "predicated BRA": r"@!?P\d\s+BRA", "SHFL": r"\bSHFL", "VOTE": r"\bVOTE"}
 for source in ("g1_mul.cu", "g2_mul.cu"):
     code_summary(write_sass(source), r"Function : \S+", SASS_PATS)
 if args.ladder:

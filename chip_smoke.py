@@ -53,6 +53,13 @@ for bit against no mesh; and `BatchedSchnorrVerifier` on 64 and 1,024
 signatures with planted faults against the host `PublicKey.verify`,
 with and without the mesh.
 
+The verify's own five `g1_msm` launches are held against the plain
+version and timed (`[msm]`); `g1_mul`, `g2_mul` and the select
+multiexp are timed on all-zero, all-0xF and random scalars at the
+1,024-tx prove's rows (`[secret-scalars]`); the kernels redesigned
+for the H100 print their lanes, ptxas line and share of bound
+(`[ladder]`, `[redesign]`).
+
 Phases print one line each. Before the last line come the GPU's name
 and power limit as `nvidia-smi` reports them and one JSON object with
 each path kernel's launches, times and bound; the last line is
@@ -64,11 +71,11 @@ of the JAX package.
 from __future__ import annotations
 
 import argparse
-import json
 import contextlib
+import ctypes
+import json
 import os
 import random
-import re
 import statistics
 import subprocess
 import sys
@@ -302,10 +309,25 @@ def main() -> int:
         return " | ".join(" ".join(x.split(":", 1)[-1].strip() for x in lines[i + 2:i + 4])
                           for i, ln in enumerate(lines) if "Compiling entry function" in ln)
 
-    def lanes_of(name: str) -> int:
-        """The TPI a ladder kernel is built with (its source's default)."""
-        with open(os.path.join(_build.CSRC, f"{name}.cu")) as fh:
-            return int(re.search(rf"#define FTS_{name.upper()}_TPI (\d+)", fh.read()).group(1))
+    def built_config(source: str, n: int) -> tuple:
+        """The compile-time lane counts (and sizes) of a source's kernel as
+        its built library reports them (`fts_<kernel>_config`): what the
+        timed kernel was built with."""
+        fn = getattr(_build.build_all()[source], f"fts_{source[:-3]}_config")
+        fn.restype = ctypes.c_int
+        vals = [ctypes.c_int() for _ in range(n)]
+        if fn(*(ctypes.byref(v) for v in vals)) != 0:
+            fail(f"{source}: its config entry failed")
+        return tuple(v.value for v in vals)
+
+    def entry_ptxas(source: str, select: bool) -> str:
+        """The stack/spill and register lines of one of g1_msm.cu's two
+        entry points (the template argument SELECT: Lb1E is the select)."""
+        lines = _build.BUILD_LOG.get(source, "").splitlines()
+        tag = "ILb1E" if select else "ILb0E"
+        return " | ".join(" ".join(x.split(":", 1)[-1].strip() for x in lines[i + 2:i + 4])
+                          for i, ln in enumerate(lines)
+                          if "Compiling entry function" in ln and tag in ln)
 
     def timed(fn, reps: int) -> float:
         """Mean ms per call over `reps` calls, after a warm-up call."""
@@ -669,12 +691,22 @@ def main() -> int:
             return fn(*a, **kw)
         return wrapper
 
+    msm_rows_fn = st.g1_msm_rows
+
     def verify_counted(txs):
         """One verify with every count set to 0 just before it and read
-        just after, recording each range kernel's inputs."""
+        just after, recording each range kernel's inputs and those of every
+        g1_msm call (under "g1_msm", a list)."""
         captured.clear()
+        msm_calls = []
+
+        def msm_capturing(*a):
+            msm_calls.append(tuple(x.clone() for x in a))
+            return msm_rows_fn(*a)
+
         for name in RANGE_KERNELS:
             setattr(st, f"{name}_rows", capturing(name))
+        st.g1_msm_rows = msm_capturing
         for k in _build.ALL_KERNELS:
             k.launches = 0
         try:
@@ -684,10 +716,11 @@ def main() -> int:
         finally:
             for name, fn in originals.items():
                 setattr(st, f"{name}_rows", fn)
+            st.g1_msm_rows = msm_rows_fn
         counts = {k.name: k.launches for k in _build.ALL_KERNELS}
         if counts != RANGE_LAUNCHES:
             fail(f"a {len(txs)}-tx 2-in/2-out verify launched {counts}, expected {RANGE_LAUNCHES}")
-        return got, wall, counts, dict(captured)
+        return got, wall, counts, {**captured, "g1_msm": msm_calls}
 
     # every g1_mul and g2_mul call of the block verify and of the block and
     # batch proves, inputs and output, held against the plain versions in
@@ -796,6 +829,40 @@ def main() -> int:
         f"(bound {v['bound_block'][0]:.4f}/{v['bound_batch'][0]:.4f}, plain {v['plain_ms']:.0f})"
         for k, v in range_stats.items()) + f"; each equals its plain version exactly on the "
         f"block verify's inputs and repeats that output on the batch's [{card}]")
+
+    # the verify's own g1_msm launches (WF, membership x2, equality x2):
+    # each held against its plain version at the block's rows, timed at
+    # both sizes beside its bound
+    verify_msm = []
+    for ab, abig in zip(inputs_block["g1_msm"], inputs_batch["g1_msm"]):
+        got = st.g1_msm_rows(*ab)
+        want = st.g1_msm_plain(*ab)
+        if not torch.equal(got, want):
+            fail(f"g1_msm disagrees with its plain version on the verify's inputs "
+                 f"({ab[1].shape[0]} x {ab[1].shape[1]}; max |err| {max_abs_err(got, want)})")
+        # the batch's rows are copies of the block's: each output row equals
+        # the block output of the row with the same scalar words
+        index = {bytes(r): i for i, r in enumerate(ab[1].cpu().numpy().reshape(len(got), -1))}
+        at = [index.get(bytes(r)) for r in abig[1].cpu().numpy().reshape(abig[1].shape[0], -1)]
+        if None in at or not torch.equal(st.g1_msm_rows(*abig),
+                                         got[torch.tensor(at, device=got.device)]):
+            fail("g1_msm at the batch's rows does not repeat its block output")
+        row = {"nbases": ab[1].shape[1], "rows_block": ab[1].shape[0],
+               "rows_batch": abig[1].shape[0], "ms_block": timed(lambda: st.g1_msm_rows(*ab), 10),
+               "ms_batch": timed(lambda: st.g1_msm_rows(*abig), 10)}
+        for size, (table, scal) in (("block", ab), ("batch", abig)):
+            nb, ks = scal.shape[1], lb.batch_words_to_ints(scal)
+            row[f"bound_{size}"] = bound_ms(
+                msm_products(ks[r * nb:(r + 1) * nb] for r in range(scal.shape[0])),
+                table.numel() * 4 + scal.shape[0] * (nb * SCALAR_BYTES + POINT_BYTES))[0]
+        verify_msm.append(row)
+    say("msm", "the 2-in/2-out verify's g1_msm launches, each equal to its plain version on the "
+        "block's inputs and repeating it on the batch's; ms at block/batch rows: " + ", ".join(
+            f"{v['rows_block']}/{v['rows_batch']} x {v['nbases']} {v['ms_block']:.4f}/"
+            f"{v['ms_batch']:.4f} (bound {v['bound_block']:.4f}/{v['bound_batch']:.4f})"
+            for v in verify_msm) + "; sum " + "/".join(
+            f"{sum(v[f'ms_{z}'] for v in verify_msm):.4f}" for z in ("block", "batch"))
+        + f" ms, bound {sum(v['bound_batch'] for v in verify_msm):.4f} ms at batch [{card}]")
 
     range_medians = medians("2-in/2-out", zip((rblock, rbatch), VERIFY_REPS["2-in/2-out"]))
     range_spans = wf_spans + ("batch.membership.verify", "batch.range.parse", "batch.range.device",
@@ -1037,7 +1104,7 @@ def main() -> int:
                                    * (2 * G2_BYTES + SCALAR_BYTES))
         fn = getattr(st, f"{name}_rows")
         ladder[name] = {
-            "tpi": lanes_of(name), "ptxas": ptxas_of(f"{name}.cu"),
+            "tpi": built_config(f"{name}.cu", 1)[0], "ptxas": ptxas_of(f"{name}.cu"),
             "calls_checked": len(calls), "rows_checked": pts.shape[0], "plain_ms": p_ms,
             "rows_block": rows_b, "rows_batch": rows_B, "ms_block": ms_b, "ms_batch": ms_B,
             "bound_block": bound_b, "bound_batch": bound_B,
@@ -1053,6 +1120,59 @@ def main() -> int:
         f"{v['prove_bound']:.4f}); {v['calls_checked']} calls of the 64-tx verify and the "
         f"proves ({v['rows_checked']} rows) equal the plain version exactly "
         f"(plain {v['plain_ms']:.0f} ms)" for name, v in ladder.items()) + f" [{card}]")
+
+    # secret scalars: the kernels that take them on the prove path, timed
+    # on all-zero, all-0xF (every 4-bit digit 15, words as given) and
+    # random scalars at the 1,024-tx prove's rows, in turns in one phase;
+    # the spread is (max - min) / min over the three
+    secret = {}
+    wf_table, wf_scal = pin_batch["g1_msm_select"][0]
+    for name, fn, args_ in (
+            ("g1_mul", st.g1_mul_rows, [a for tag, a, _ in ladder_calls["g1_mul"]
+                                        if tag == "prove batch"][0]),
+            ("g2_mul", st.g2_mul_rows, [a for tag, a, _ in ladder_calls["g2_mul"]
+                                        if tag == "prove batch"][0]),
+            ("g1_msm_select", st.g1_msm_select_rows, (wf_table, wf_scal))):
+        pts, scal = args_
+        kinds = {"zero": torch.zeros_like(scal), "0xF": torch.full_like(scal, -1), "random": scal}
+        ms = {kind: timed(lambda: fn(pts, k), 5) for kind, k in kinds.items()}
+        secret[name] = {"rows": scal.shape[0], **ms,
+                        "spread": (max(ms.values()) - min(ms.values())) / min(ms.values())}
+    say("secret-scalars", "; ".join(
+        f"{name} {v['rows']} rows: zero {v['zero']:.4f}, 0xF {v['0xF']:.4f}, random "
+        f"{v['random']:.4f} ms, spread {100 * v['spread']:.2f}%" for name, v in secret.items())
+        + f" [{card}]")
+
+    # the kernels redesigned for the H100: lanes, ptxas, times beside the bound
+    v_sel, v_fe = prove_stats["g1_msm_select"][0], range_stats["final_exp"]
+    small, big = BLOCK_TXS * ROWS_PER_TX, BATCH_TXS * ROWS_PER_TX
+    (msm_s,), (fe_g, fe_smem) = built_config("g1_msm.cu", 1), built_config("final_exp.cu", 2)
+    redesign = {
+        "g1_msm": {
+            "lanes": f"S {msm_s}",
+            "ptxas": entry_ptxas("g1_msm.cu", False), "rows": f"{small}/{big} x 3",
+            "ms": (stats["g1_msm"][small][0], stats["g1_msm"][big][0]),
+            "bound": (stats["g1_msm"][small][3][0], stats["g1_msm"][big][3][0])},
+        "g1_msm_select": {
+            "lanes": f"S {msm_s}",
+            "ptxas": entry_ptxas("g1_msm.cu", True),
+            "rows": f"{v_sel['rows_block']}/{v_sel['rows_batch']} x {v_sel['nbases']}",
+            "ms": (v_sel["ms_block"], v_sel["ms_batch"]),
+            "bound": (v_sel["bound_block"][0], v_sel["bound_batch"][0])},
+        "final_exp": {
+            "lanes": f"G {fe_g}, {fe_smem} B dynamic shared memory a block",
+            "ptxas": ptxas_of("final_exp.cu"),
+            "rows": f"{v_fe['rows_block']}/{v_fe['rows_batch']}",
+            "ms": (v_fe["ms_block"], v_fe["ms_batch"]),
+            "bound": (v_fe["bound_block"][0], v_fe["bound_batch"][0])},
+    }
+    for v in redesign.values():
+        v["share"] = tuple(b / m for b, m in zip(v["bound"], v["ms"]))
+    say("redesign", "; ".join(
+        f"{name} ({v['lanes']}; ptxas {v['ptxas']}): {v['rows']} rows {v['ms'][0]:.4f}/"
+        f"{v['ms'][1]:.4f} ms, bound {v['bound'][0]:.4f}/{v['bound'][1]:.4f} ms, "
+        f"{100 * v['share'][0]:.2f}%/{100 * v['share'][1]:.2f}% of bound"
+        for name, v in redesign.items()) + f" [{card}]")
 
     prove_medians = medians("2-in/2-out", zip((preq_block, preq_batch), PROVE_REPS), run=prove,
                             what="prove")
@@ -1376,6 +1496,10 @@ def main() -> int:
         })
         if k.name in ladder:
             kernels[-1].update({x: ladder[k.name][x] for x in ("tpi", "ptxas", "share_batch")})
+        if k.name in redesign:
+            v = redesign[k.name]
+            kernels[-1].update({"lanes": v["lanes"], "ptxas": v["ptxas"], "share_batch": v["share"][1],
+                                "verify_launches": verify_msm})
     for name in RANGE_KERNELS:
         v, k = range_stats[name], kernels_by_name[name]
         kernels.append({
@@ -1391,6 +1515,9 @@ def main() -> int:
         })
         if name in ladder:
             kernels[-1].update({x: ladder[name][x] for x in ("tpi", "ptxas", "share_batch")})
+        if name in redesign:
+            v = redesign[name]
+            kernels[-1].update({"lanes": v["lanes"], "ptxas": v["ptxas"], "share_batch": v["share"][1]})
     # the prove path's own rows: the select multiexp (its WF call, 3 bases,
     # stands for it; every call is listed), the add, the K = 2 product
     sources = {"g1_msm_select": "g1_msm.cu", "g1_add": "g1_addsub.cu",
@@ -1415,6 +1542,9 @@ def main() -> int:
         if name == "g1_msm_select":
             row["launches_1in1out_prove"] = launches_pwf[name]
             row["zero_vs_random_scalars_ms"] = zero_random
+            row["secret_scalars_ms"] = secret
+            v = redesign[name]
+            row.update({"lanes": v["lanes"], "ptxas": v["ptxas"], "share_batch": v["share"][1]})
         kernels.append(row)
     # the mesh plane's kernel: both modes of pairing_fused.cu, at the
     # membership check's batch rows (K = 4); the PS rows beside them

@@ -56,6 +56,9 @@ constexpr int WINDOWS = 64;  // 4-bit windows of a 256-bit scalar
 constexpr int DIGITS = 16;   // table entries
 
 #ifndef FTS_HOST_CHECK
+// Every shuffle and ballot names the whole warp: all its lanes run the
+// same path. (Naming only a group's own lanes made the ladders ~6x
+// slower on the H100, chip_smoke.py's [ladder] line.)
 constexpr uint32_t FULL = 0xffffffffu;
 #endif
 

@@ -29,6 +29,12 @@ using namespace bn254;
 #define FTS_G2_MUL_TPI 4  // lanes a row (chip_probe.py overrides it for its sweep)
 #endif
 
+// the kernel's lanes a row, as this library was built
+extern "C" int fts_g2_mul_config(int* tpi) {
+  *tpi = FTS_G2_MUL_TPI;
+  return 0;
+}
+
 #ifdef FTS_HOST_CHECK
 extern "C" void host_g2_mul(const uint32_t* points, const uint32_t* scalars, uint32_t* out,
                             int n) {

@@ -14,23 +14,26 @@
 #define __ldg(ptr) (*(ptr))
 #define FTS_NOINLINE __attribute__((noinline))
 
-// Lockstep emulation of a lane group, for the cooperative ladder of
-// bn254_ladder.cuh at TPI > 1: each lane of a row runs the row function
-// as a coroutine (ucontext) on one host thread, and an exchange (what a
-// shuffle or a ballot is on the card) lets every lane post a value and
-// read all of them before any lane goes on. Valid because a group's
-// lanes take the same path through the code, as on the card.
+// Lockstep emulation of the lanes of a row, for the cooperative kernels
+// (bn254_ladder.cuh at TPI > 1, g1_msm.cu's split windows, final_exp.cu's
+// lanes a row): each lane runs the row function as a coroutine
+// (ucontext) on one host thread, and an exchange (what a shuffle or a
+// ballot is on the card) lets every lane post a value and read all of
+// them before any lane goes on. Valid because the lanes take the same
+// path through the code between exchanges, as on the card.
 #include <ucontext.h>
 
 #include <vector>
 
 namespace fts_host {
 
-constexpr int MAX_LANES = 8;
-constexpr size_t LANE_STACK = 1 << 20;
+constexpr int MAX_LANES = 32;  // a warp
+constexpr size_t LANE_STACK = 1 << 19;
 
 struct Lanes {
   int tpi = 1, cur = 0, done = 0;
+  bool active = false;  // inside run_group
+  int arrived = 0, generation = 0;  // the barrier
   ucontext_t main, ctx[MAX_LANES];
   uint32_t slot[MAX_LANES];
   void (*body)(int lane, void* arg) = nullptr;
@@ -59,6 +62,24 @@ inline void exchange(uint32_t v, uint32_t* all) {
   pass();  // every lane has read
 }
 
+// this lane's index in the emulated group
+inline int lane_id() { return lanes().cur; }
+
+// a barrier of all the lanes (__syncwarp on the card): a lane waits,
+// handing over, until every lane has arrived; nothing for one lane. The
+// lanes of a final_exp.cu row part between barriers, with no exchange
+// there (each holds whole field elements).
+inline void sync() {
+  Lanes& s = lanes();
+  if (!s.active) return;
+  const int gen = s.generation;
+  if (++s.arrived == s.tpi) {
+    s.arrived = 0;
+    ++s.generation;
+  }
+  while (s.generation == gen) pass();
+}
+
 inline void lane_entry() {
   Lanes& s = lanes();
   int me = s.cur;
@@ -71,7 +92,8 @@ inline void lane_entry() {
 // body(lane, arg) for lanes 0 .. tpi - 1 in lockstep
 inline void run_group(int tpi, void (*body)(int, void*), void* arg) {
   Lanes& s = lanes();
-  s.tpi = tpi, s.cur = 0, s.done = 0, s.body = body, s.arg = arg;
+  s.tpi = tpi, s.cur = 0, s.done = 0, s.body = body, s.arg = arg, s.active = true;
+  s.arrived = 0;
   std::vector<char> stacks((size_t)tpi * LANE_STACK);
   for (int r = 0; r < tpi; ++r) {
     getcontext(&s.ctx[r]);
@@ -81,6 +103,7 @@ inline void run_group(int tpi, void (*body)(int, void*), void* arg) {
     makecontext(&s.ctx[r], lane_entry, 0);
   }
   swapcontext(&s.main, &s.ctx[0]);
+  s.active = false;
 }
 
 }  // namespace fts_host

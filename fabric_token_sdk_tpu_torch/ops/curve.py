@@ -10,8 +10,9 @@ The group ops here are the plain torch versions that the CUDA kernels
 (dbl-2009-l, add-2007-bl) and its edge-case selects, so a result's
 canonical Jacobian coordinates equal the reference's and the kernels';
 the variable-base `scalar_mul` takes the kernels' 4-bit window ladder
-(`window_mul`), which reaches the reference's group element with
-another Jacobian Z.
+(`window_mul`), and the fixed-base `msm` the g1_msm kernels' split
+windows and complete projective additions: both reach the reference's
+group element with another Jacobian Z.
 Internally a point is a tuple of three half-word coordinate tensors,
 digit axis first (`ops/field.py`); field products that do not depend on
 each other are stacked into one `FP.mul` call (the 16 products of an
@@ -162,31 +163,121 @@ def scalar_mul(p: Half3, scalars: torch.Tensor) -> Half3:
     return window_mul(p, scalars, double, add)
 
 
-def msm(table: torch.Tensor, scalars: torch.Tensor, select: bool = False) -> Half3:
-    """Fixed-base multiexp: sum_b scalars[:, b] * base_b, by adding the
-    window entries in the reference's order (base-major, 4-bit windows
-    LSB-first). table (nb*64, 16, 3, 8); scalars (N, nb, 8).
+# ---------------------------------------------------------------- multiexp
+# The fixed-base multiexp of the g1_msm kernels (csrc/g1_msm.cu), in
+# homogeneous projective coordinates (x = X/Z, y = Y/Z) with the complete
+# formulas of Renes, Costello and Batina (2016) for a = 0: every input,
+# P == Q, P == -Q and the identity (0 : 1 : 0) included, takes the same
+# field operations, so no case needs a select or a doubling.
+
+# lanes that share a row's windows in the kernels (FTS_G1_MSM_S)
+MSM_SPLIT = 8
+
+
+def _times9(x):
+    """9x = 8x + x by doubling (3b for b = 3)."""
+    x2 = FP.add(x, x)
+    x4 = FP.add(x2, x2)
+    return FP.add(FP.add(x4, x4), x)
+
+
+def proj_madd(p: Half3, x2, y2) -> Half3:
+    """Complete mixed addition (RCB Algorithm 8, a = 0): projective P
+    plus the affine point (x2, y2), which must not be the identity. 11
+    products; the operation order is the kernel's."""
+    x1, y1, z1 = p
+    t0, t1, t4, y3 = _mul_n((x1, x2), (y1, y2), (y2, z1), (x2, z1))
+    t3 = FP.mul(FP.add(x2, y2), FP.add(x1, y1))
+    t3 = FP.sub(t3, FP.add(t0, t1))
+    t4 = FP.add(t4, y1)
+    y3 = FP.add(y3, x1)
+    x3 = FP.add(t0, t0)
+    t0 = FP.add(x3, t0)
+    t2 = _times9(z1)
+    z3 = FP.add(t1, t2)
+    t1 = FP.sub(t1, t2)
+    y3 = _times9(y3)
+    x3, t2, y3, t1, t0, z3 = _mul_n((t4, y3), (t3, t1), (y3, t0), (t1, z3), (t0, t3), (z3, t4))
+    return FP.sub(t2, x3), FP.add(t1, y3), FP.add(z3, t0)
+
+
+def proj_add(p: Half3, q: Half3) -> Half3:
+    """Complete addition (RCB Algorithm 7, a = 0) of projective points.
+    12 products; the operation order is the kernel's."""
+    x1, y1, z1 = p
+    x2, y2, z2 = q
+    t0, t1, t2 = _mul_n((x1, x2), (y1, y2), (z1, z2))
+    t3, t4, x3 = _mul_n((FP.add(x1, y1), FP.add(x2, y2)), (FP.add(y1, z1), FP.add(y2, z2)),
+                        (FP.add(x1, z1), FP.add(x2, z2)))
+    t3 = FP.sub(t3, FP.add(t0, t1))
+    t4 = FP.sub(t4, FP.add(t1, t2))
+    y3 = FP.sub(x3, FP.add(t0, t2))
+    x3 = FP.add(t0, t0)
+    t0 = FP.add(x3, t0)
+    t2 = _times9(t2)
+    z3 = FP.add(t1, t2)
+    t1 = FP.sub(t1, t2)
+    y3 = _times9(y3)
+    x3, t2, y3, t1, t0, z3 = _mul_n((t4, y3), (t3, t1), (y3, t0), (t1, z3), (t0, t3), (z3, t4))
+    return FP.sub(t2, x3), FP.add(t1, y3), FP.add(z3, t0)
+
+
+def proj_to_jacobian(p: Half3) -> Half3:
+    """(X : Y : Z) projective -> (X Z, Y Z^2, Z) Jacobian: the same point,
+    and the identity (Z = 0) becomes the all-zero Jacobian infinity."""
+    x, y, z = p
+    zz, xz = _mul_n((z, z), (x, z))
+    return xz, FP.mul(y, zz), z
+
+
+def msm(table: torch.Tensor, scalars: torch.Tensor, select: bool = False,
+        split: int = MSM_SPLIT) -> Half3:
+    """Fixed-base multiexp: sum_b scalars[:, b] * base_b over 4-bit
+    windows, in the g1_msm kernels' exact sequence. table (nb*64, 16, 3,
+    8) with affine (Z = 1) or all-zero entries; scalars (N, nb, 8).
+
+    A row's nb*64 windows t = 64 b + w (base-major, windows LSB-first)
+    fall into `split` equal shares, lane j owning t in [j T/S, (j+1) T/S);
+    each lane adds its entries in order into a projective accumulator
+    that starts at the identity (a complete mixed addition; an all-zero
+    entry, digit 0, keeps the accumulator by a select). The lanes' sums
+    are then joined by a pairwise tree of complete additions (lane 2i
+    with 2i + 1, lower lane first), as the kernel's butterfly leaves them
+    in lane 0, and the sum is returned in Jacobian coordinates. The same
+    point as the reference's scan of Jacobian adds, with another Z.
 
     Each window's entry is gathered by the digit, or with `select` picked
     as the reference's `msm_select` does for secret scalars: the 16-way
     one-hot of the digit times all 16 entries, summed, in exact integer
-    arithmetic. Both give the same points."""
+    arithmetic. Both give the same words."""
     n, nbases = scalars.shape[0], scalars.shape[1]
-    tab = words_to_half(table)  # (16, nb*64, 16, 3)
+    total = nbases * DIGITS_PER_SCALAR
+    if total % split:
+        raise ValueError(f"{total} windows do not split into {split} lanes")
+    share = total // split
+    tab = words_to_half(table)[..., :2]  # (16, nb*64, 16 entries, 2): X, Y
     k = scalars.to(torch.int64) & 0xFFFFFFFF
     entries = torch.arange(WINDOW_SIZE, device=tab.device)
-    acc = infinity_half(tab.new_zeros((tab.shape[0], n)))
-    for b in range(nbases):
-        for w in range(DIGITS_PER_SCALAR):
-            digit = (k[:, b, w // 8] >> (WINDOW_BITS * (w % 8))) & (WINDOW_SIZE - 1)
-            window = tab[:, b * DIGITS_PER_SCALAR + w]  # (16, 16 entries, 3)
-            if select:
-                onehot = (digit[:, None] == entries).to(tab.dtype)  # (N, 16)
-                sel = (onehot[None, :, :, None] * window[:, None]).sum(dim=2)  # (16, N, 3)
-            else:
-                sel = window[:, digit]
-            acc = add(acc, (sel[..., 0], sel[..., 1], sel[..., 2]))
-    return acc
+    lanes = torch.arange(split, device=tab.device) * share
+    zero = tab.new_zeros((tab.shape[0], n, split))
+    acc = (zero, FP.one_half(zero), zero.clone())
+    for i in range(share):
+        t = lanes + i  # (S,) this step's window of every lane
+        b, w = t // DIGITS_PER_SCALAR, t % DIGITS_PER_SCALAR
+        word = k[:, b, w // 8]  # (N, S)
+        digit = (word >> (WINDOW_BITS * (w % 8))) & (WINDOW_SIZE - 1)
+        if select:
+            onehot = (digit[..., None] == entries).to(tab.dtype)  # (N, S, 16)
+            sel = (onehot[None, ..., None] * tab[:, t][:, None]).sum(dim=3)  # (16, N, S, 2)
+        else:
+            sel = tab[:, t[None, :], digit]  # (16, N, S, 2)
+        x2, y2 = sel[..., 0], sel[..., 1]
+        out = proj_madd(acc, x2, y2)
+        keep = FP.is_zero(y2)  # an all-zero entry: no affine point has y = 0
+        acc = tuple(torch.where(keep, a, o) for a, o in zip(acc, out))
+    while acc[0].shape[-1] > 1:
+        acc = proj_add(tuple(c[..., 0::2] for c in acc), tuple(c[..., 1::2] for c in acc))
+    return proj_to_jacobian(tuple(c[..., 0] for c in acc))
 
 
 # ---------------------------------------------------------------- host I/O
@@ -238,17 +329,33 @@ def encode_scalars(ks) -> np.ndarray:
 
 # ---------------------------------------------------------------- fixed base
 
+def check_affine_table(table: torch.Tensor) -> None:
+    """Raise unless every entry of a fixed-base table is affine (Z is
+    Montgomery one) or the all-zero infinity (X, Y and Z zero), mod p: the
+    g1_msm kernels and `msm` read only X and Y of an entry."""
+    vals = lb.batch_words_to_ints(table.reshape(-1, 3, lb.NWORDS))
+    for i in range(0, len(vals), 3):
+        x, y, z = (v % hm.P for v in vals[i : i + 3])
+        if z != _R_MOD_P and (x, y, z) != (0, 0, 0):
+            raise ValueError(f"fixed-base table entry {i // 3} is neither affine nor the "
+                             "all-zero infinity")
+
+
 class FixedBaseTable(torch.nn.Module):
     """Windowed multiples of fixed bases for the batched multiexp.
 
     The buffer `table` has shape (nbases*64, 16, 3, 8): entry [64b + w][d]
-    is base_b * d * 16^w as Montgomery Jacobian words, so `.to(device)`
-    moves it with the module. For 3 bases it is 295 KB.
+    is base_b * d * 16^w as Montgomery Jacobian words with Z = 1 (the
+    all-zero infinity for d = 0), so `.to(device)` moves it with the
+    module. For 3 bases it is 295 KB. A table given as `table=` or loaded
+    from a state dict is checked to be affine (`check_affine_table`).
     """
 
     def __init__(self, host_points: Sequence = (), table: torch.Tensor = None):
         super().__init__()
-        if table is None:
+        if table is not None:
+            check_affine_table(table)
+        else:
             entries = []
             for pt in host_points:
                 for w in range(DIGITS_PER_SCALAR):
@@ -265,6 +372,11 @@ class FixedBaseTable(torch.nn.Module):
         ):
             raise ValueError(f"bad fixed-base table shape {tuple(table.shape)}")
         self.register_buffer("table", table.to(torch.int32).contiguous())
+
+    def _load_from_state_dict(self, state_dict, prefix, *args, **kwargs):
+        if prefix + "table" in state_dict:
+            check_affine_table(state_dict[prefix + "table"])
+        super()._load_from_state_dict(state_dict, prefix, *args, **kwargs)
 
     @property
     def nbases(self) -> int:

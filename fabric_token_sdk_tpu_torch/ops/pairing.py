@@ -33,7 +33,7 @@ from ..crypto import hostmath as hm
 
 # bits of 6u+2 after the leading one, MSB first
 _ATE_BITS = np.array([int(b) for b in bin(hm.ATE_LOOP)[3:]], dtype=np.int32)
-# ALL bits of u MSB-first; _pow_u scans _U_BITS[1:]
+# ALL bits of u MSB-first; the final exponentiation scans _U_BITS[1:]
 _U_BITS = np.array([int(b) for b in bin(hm.U)[2:]], dtype=np.int32)
 
 # hard-part u-basis coefficients (c0..c3) per lambda_i, checked at import
@@ -207,43 +207,84 @@ def product_rows(f):
 
 
 # ---------------------------------------------------------------- final exp
+# The final exponentiation as a program over ten Fp12 slots: the easy
+# part, three exponentiations by u (cyclotomic squarings, a product on
+# each set bit), the Straus pass over the coefficient bits (its squarings
+# cyclotomic; an accumulator still at one is set by its first term, not
+# squared or multiplied) and the Frobenius combine. `final_exp` runs the
+# program on tensors; the final_exp kernel (`csrc/final_exp.cu`) runs the
+# same program from the table FE_PROGRAM in its source, which a CPU test
+# holds equal to `final_exp_program_words()`.
 
-def _pow_u(f):
-    """f^u by the fixed bits of u, MSB first."""
-    acc = f
-    for bit in _U_BITS[1:]:
-        acc = tw.fp12_sqr(acc)
-        if bit:
-            acc = tw.fp12_mul(acc, f)
-    return acc
+(FE_MUL, FE_MULC, FE_CSQR, FE_FROB1, FE_FROB2, FE_FROB3, FE_CONJ, FE_INV,
+ FE_COPY) = range(1, 10)  # FE_MULC: a times conj(b)
+FE_X, FE_Y = 0, 1  # scratch; the input lies in FE_X
+FE_PW = (2, 3, 4, 5)  # t^(u^k), k = 0..3
+FE_ACC = (6, 7, 8, 9)  # the Straus accumulators; the result lies in FE_ACC[0]
+FE_SLOTS = 10
+
+
+@functools.lru_cache(maxsize=None)
+def final_exp_program() -> tuple:
+    """The final exponentiation as (op, dst, a, b) steps over the slots."""
+    X, Y, PW, ACC = FE_X, FE_Y, FE_PW, FE_ACC
+    prog = [(FE_INV, Y, X, 0), (FE_CONJ, X, X, 0), (FE_MUL, X, X, Y),  # t = conj(f) / f
+            (FE_FROB2, Y, X, 0), (FE_MUL, PW[0], Y, X)]  # t = t^(p^2) t
+    for k in range(1, 4):  # PW[k] = PW[k-1]^u, MSB first below u's top bit
+        prog.append((FE_COPY, PW[k], PW[k - 1], 0))
+        for bit in _U_BITS[1:]:
+            prog.append((FE_CSQR, PW[k], PW[k], 0))
+            if bit:
+                prog.append((FE_MUL, PW[k], PW[k], PW[k - 1]))
+    unset = [True] * 4
+    for bits in _HP_BITS:
+        for i in range(4):
+            if not unset[i]:
+                prog.append((FE_CSQR, ACC[i], ACC[i], 0))
+        for k in range(4):
+            for i in range(4):
+                if bits[i, k]:
+                    pos = _HP_SIGN[i, k] > 0
+                    if unset[i]:
+                        prog.append((FE_COPY if pos else FE_CONJ, ACC[i], PW[k], 0))
+                        unset[i] = False
+                    else:
+                        prog.append((FE_MUL if pos else FE_MULC, ACC[i], ACC[i], PW[k]))
+    assert not any(unset)
+    prog += [(FE_FROB1, X, ACC[1], 0), (FE_MUL, ACC[0], ACC[0], X),
+             (FE_FROB2, X, ACC[2], 0), (FE_FROB3, Y, ACC[3], 0), (FE_MUL, X, X, Y),
+             (FE_MUL, ACC[0], ACC[0], X)]
+    return tuple(prog)
+
+
+def final_exp_program_words() -> list:
+    """The program as the kernel's table: op | dst << 8 | a << 16 | b << 24."""
+    return [op | dst << 8 | a << 16 | b << 24 for op, dst, a, b in final_exp_program()]
 
 
 def final_exp(f):
-    """Plain f^((p^12-1)/r) on (16, B, 6, 2)."""
-    t = tw.fp12_mul(tw.fp12_conj(f), tw.fp12_inv(f))
-    t = tw.fp12_mul(tw.fp12_frobenius(t, 2), t)
-    fu = _pow_u(t)
-    fu2 = _pow_u(fu)
-    fu3 = _pow_u(fu2)
-    powers = torch.stack([t, fu, fu2, fu3], dim=1)  # (16, 4 bases, B, 6, 2)
-    conj = tw.fp12_conj(powers)
-    sign = torch.from_numpy(_HP_SIGN > 0).to(f.device)  # (4 out, 4 base)
-    sel = sign.view((1, 4, 4) + (1,) * (f.dim() - 1))
-    bases = torch.where(sel, powers.unsqueeze(1), conj.unsqueeze(1))  # (16, 4o, 4b, B, 6, 2)
-    acc = tw.fp12_one_half(torch.zeros_like(powers))  # (16, 4 out, B, 6, 2)
-    take_shape = (1, 4) + (1,) * (f.dim() - 1)
-    for bits in _HP_BITS:  # (4 out, 4 base)
-        acc = tw.fp12_sqr(acc)
-        for k in range(4):
-            col = bits[:, k]
-            if not col.any():
-                continue
-            mult = tw.fp12_mul(acc, bases[:, :, k])
-            take = torch.from_numpy(col > 0).to(f.device).view(take_shape)
-            acc = torch.where(take, mult, acc)
-    r01 = tw.fp12_mul(acc[:, 0], tw.fp12_frobenius(acc[:, 1], 1))
-    r23 = tw.fp12_mul(tw.fp12_frobenius(acc[:, 2], 2), tw.fp12_frobenius(acc[:, 3], 3))
-    return tw.fp12_mul(r01, r23)
+    """Plain f^((p^12-1)/r) on (16, B, 6, 2), by the kernel's program."""
+    frob = {FE_FROB1: 1, FE_FROB2: 2, FE_FROB3: 3}
+    slots = [None] * FE_SLOTS
+    slots[FE_X] = f
+    for op, dst, a, b in final_exp_program():
+        x = slots[a]
+        if op == FE_MUL:
+            r = tw.fp12_mul(x, slots[b])
+        elif op == FE_MULC:
+            r = tw.fp12_mul(x, tw.fp12_conj(slots[b]))
+        elif op == FE_CSQR:
+            r = tw.fp12_cyclo_sqr(x)
+        elif op in frob:
+            r = tw.fp12_frobenius(x, frob[op])
+        elif op == FE_CONJ:
+            r = tw.fp12_conj(x)
+        elif op == FE_INV:
+            r = tw.fp12_inv(x)
+        else:  # FE_COPY
+            r = x
+        slots[dst] = r
+    return slots[FE_ACC[0]]
 
 
 # ---------------------------------------------------------------- staged product

@@ -196,6 +196,26 @@ def fp12_sqr(x):
 _ODD_W = torch.tensor([False, True, False, True, False, True])
 
 
+def fp12_cyclo_sqr(x):
+    """x^2 for x in the cyclotomic subgroup (every value after the final
+    exponentiation's easy part), by Granger and Scott: Fp12 as three Fp4
+    elements (x[j], x[j+3]) over w^3 (w^6 = XI), each squared from three
+    Fp2 squarings, 18 base products in all (the kernel's, `csrc/
+    bn254_gt_coop.cuh`); fp12_sqr takes 36. Wrong outside that subgroup."""
+    a, b = x[..., 0:3, :], x[..., 3:6, :]  # pairs (x0, x3), (x1, x4), (x2, x5)
+    sq = fp2_sqr(torch.cat([a, b, FP.add(a, b)], dim=-2))
+    a2, b2, ab2 = sq[..., 0:3, :], sq[..., 3:6, :], sq[..., 6:9, :]
+    te = FP.add(a2, fp2_mul_xi(b2))  # t0, t2, t4
+    to = FP.sub(FP.sub(ab2, a2), b2)  # t1, t3, t5
+    # coefficient j takes 3 T_j - 2 x_j (even j) or 3 T_j + 2 x_j (odd j)
+    t = torch.stack([te[..., 0, :], fp2_mul_xi(to[..., 2, :]), te[..., 1, :], to[..., 0, :],
+                     te[..., 2, :], to[..., 1, :]], dim=-2)
+    odd = _ODD_W.to(x.device).view(6, 1)
+    d = torch.where(odd, FP.add(t, x), FP.sub(t, x))
+    d = FP.add(d, d)
+    return FP.add(d, t)
+
+
 def fp12_conj(x):
     """Negate the odd powers of w (the p^6 Frobenius)."""
     odd = _ODD_W.to(x.device).view(6, 1)

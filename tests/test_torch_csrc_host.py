@@ -11,6 +11,7 @@ the same plain versions."""
 import ctypes
 import os
 import random
+import re
 import shutil
 import subprocess
 
@@ -27,10 +28,12 @@ torch.set_num_threads(1)
 
 CSRC = os.path.join(os.path.dirname(__file__), "..", "fabric_token_sdk_tpu_torch", "csrc")
 _P, _I = ctypes.c_void_p, ctypes.c_int
-ENTRY = {  # name: (source in csrc/, symbol, argtypes)
+ENTRY = {  # name: (source in csrc/, symbol, argtypes[, restype])
     "fp_ops": ("fp_ops", "host_fp_ops", [_P, _P, _P, _I]),
     "g1_msm": ("g1_msm", "host_g1_msm", [_P, _P, _P, _I, _I]),
     "g1_msm_select": ("g1_msm", "host_g1_msm_select", [_P, _P, _P, _I, _I]),
+    "g1_msm_lanes": ("g1_msm", "host_g1_msm_lanes", [_P, _P, _P, _I, _I, _I, _I], _I),
+    "g1_msm_config": ("g1_msm", "fts_g1_msm_config", [_P], _I),
     "g1_mul": ("g1_mul", "host_g1_mul", [_P, _P, _P, _I]),
     "g1_mul_lanes": ("g1_mul", "host_g1_mul_lanes", [_P, _P, _P, _I, _I]),
     "ladder_field": ("g1_mul", "host_ladder_field", [_P, _P, _P, _I, _I]),
@@ -43,6 +46,8 @@ ENTRY = {  # name: (source in csrc/, symbol, argtypes)
     "miller": ("miller", "host_miller", [_P, _P, _P, _I]),
     "gt_product": ("gt_product", "host_gt_product", [_P, _P, _I, _I]),
     "final_exp": ("final_exp", "host_final_exp", [_P, _P, _I]),
+    "final_exp_lanes": ("final_exp", "host_final_exp_lanes", [_P, _P, _I, _I], _I),
+    "final_exp_config": ("final_exp", "fts_final_exp_config", [_P, _P], _I),
     "pairing_product": ("pairing_fused", "host_pairing_product", [_P, _P, _P, _P, _I, _I]),
     "gt_product_final_exp": ("pairing_fused", "host_gt_product_final_exp", [_P, _P, _I, _I]),
 }
@@ -55,7 +60,7 @@ def host(tmp_path_factory):
         pytest.skip("no C++ compiler to build the kernels' row functions for the CPU")
     out = tmp_path_factory.mktemp("csrc_host")
     procs = {}
-    for src in {e[0] for e in ENTRY.values()}:  # all sources compile at once
+    for src in sorted({e[0] for e in ENTRY.values()}):  # all sources compile at once
         procs[src] = subprocess.Popen(
             [cxx, "-x", "c++", "-std=c++17", "-O1", "-DFTS_HOST_CHECK",
              "-include", os.path.join(CSRC, "host_check.h"), "-shared", "-fPIC",
@@ -66,9 +71,9 @@ def host(tmp_path_factory):
         log, _ = proc.communicate(timeout=300)
         assert proc.returncode == 0, f"{src}.cu: {log}"
     fns = {}
-    for name, (src, symbol, argtypes) in ENTRY.items():
+    for name, (src, symbol, argtypes, *restype) in ENTRY.items():
         fn = getattr(ctypes.CDLL(str(out / f"{src}.so")), symbol)
-        fn.argtypes, fn.restype = argtypes, None
+        fn.argtypes, fn.restype = argtypes, (restype or [None])[0]
         fns[name] = fn
     return fns
 
@@ -231,6 +236,130 @@ def test_g1_msm_select_row_matches_plain_and_hostmath(host, nbases):
     host["g1_msm"](table.table.data_ptr(), sc.data_ptr(), gathered.data_ptr(), len(rows), nbases)
     assert torch.equal(out, gathered)
     assert cv.decode_points(out) == [hm.g1_multiexp(bases, [s % hm.R for s in r]) for r in rows]
+
+
+# the g1_msm row function's lanes a row (shares S) that host_g1_msm_lanes
+# builds
+MSM_LANES = [1, 2, 4, 8, 16, 32]
+
+
+def _config(host, name, n):
+    vals = [ctypes.c_int() for _ in range(n)]
+    assert host[name](*(ctypes.byref(v) for v in vals)) == 0
+    return tuple(v.value for v in vals)
+
+
+def test_g1_msm_build_config_matches_the_plain_split(host):
+    """The kernels' lane shares (FTS_G1_MSM_S, as the library reports
+    them) are the split the plain version takes, so the two run the same
+    sequence; the build's configuration is one of the host lane tests'."""
+    (s,) = _config(host, "g1_msm_config", 1)
+    assert s == cv.MSM_SPLIT
+    assert s in MSM_LANES
+
+
+@pytest.fixture(scope="module")
+def msm_rows():
+    """Rows for the lane tests: three random bases, and two equal bases
+    (a row of equal scalars then meets P == Q in the butterfly); scalar
+    edges 0, 1, r-1, every digit 15, one window, a scalar whose low
+    windows sum to its top window's entry (P == Q inside one lane's chain
+    when a lane owns all 64 windows), a zero scalar beside random ones;
+    the tables lifted into [p, 2p) on every third entry."""
+    rng = random.Random(52)
+    m = (4 << 252) - hm.R  # (4 * 16^63) mod r, below 16^63
+    assert 0 < m < 1 << 252
+    ks = [0, 1, hm.R - 1, (1 << 256) - 1, 9 << 84, (4 << 252) + m]
+    out = {}
+    for tag, bases in (("random", _pts(rng, 3)), ("equal", [_pts(rng, 1)[0]] * 2)):
+        nb = len(bases)
+        rows = [[k] * nb for k in ks] + [[rng.randrange(hm.R) for _ in range(nb)]
+                                         for _ in range(2)]
+        rows[-1][0] = 0
+        table = cv.FixedBaseTable(bases).table
+        lifted = _lift(table.reshape(-1, 3, 8), range(0, table.shape[0] * 16, 3)).reshape(
+            table.shape).contiguous()
+        sc = torch.from_numpy(lb.ints_to_words([x for r in rows for x in r]).reshape(len(rows), nb, 8))
+        want = [hm.g1_multiexp(bases, [x % hm.R for x in r]) for r in rows]
+        out[tag] = (lifted, sc, want)
+    return out
+
+
+@pytest.mark.parametrize("s", MSM_LANES)
+def test_g1_msm_rows_by_lane_groups_match_split_plain(host, msm_rows, s):
+    """Both forms of the g1_msm row function, each row spread over s
+    emulated lanes (the butterfly's shuffles exchanged as on the card),
+    bit for bit against the plain version at split s, and as points
+    against hostmath."""
+    for lifted, sc, want in msm_rows.values():
+        n, nb = sc.shape[0], sc.shape[1]
+        plain = cv.from_half3(cv.msm(lifted, sc, split=s))
+        assert cv.decode_points(plain) == want
+        for select in (0, 1):
+            out = torch.empty((n, 3, 8), dtype=torch.int32)
+            rc = host["g1_msm_lanes"](lifted.data_ptr(), sc.data_ptr(), out.data_ptr(), n, nb, s,
+                                      select)
+            assert rc == 0
+            assert torch.equal(out, plain)
+
+
+def _fexp_rows(host):
+    """GT one, a (0, 0) leg's Miller value (it lies in Fp4) and a random
+    Fp12 lifted into [p, 2p) on every coefficient."""
+    rng = random.Random(53)
+    P = torch.from_numpy(pr.encode_g1([None]))
+    Q = torch.from_numpy(pr.encode_g2(_g2pts(rng, 1)))
+    leg = torch.empty((1, 6, 2, 8), dtype=torch.int32)
+    host["miller"](P.data_ptr(), Q.data_ptr(), leg.data_ptr(), 1)
+    rand = [tuple((rng.randrange(hm.P), rng.randrange(hm.P)) for _ in range(6))]
+    f = torch.cat([_lift(torch.from_numpy(tw.encode_fp12(rand)), [0]), leg,
+                   torch.from_numpy(tw.encode_fp12([hm.FP12_ONE]))])
+    return f.contiguous()
+
+
+def test_final_exp_program_table_matches_the_plain_program():
+    """The kernel's FE_PROGRAM (csrc/final_exp.cu) is the program the
+    plain version runs (ops/pairing.py:final_exp_program)."""
+    with open(os.path.join(CSRC, "final_exp.cu")) as fh:
+        src = fh.read()
+    body = src[src.index("FE_PROGRAM[FE_PROGRAM_LEN] = {"):]
+    body = body[: body.index("};")]
+    words = [int(w, 16) for w in re.findall(r"0x([0-9a-f]{8})u", body)]
+    assert words == pr.final_exp_program_words()
+    assert f"FE_PROGRAM_LEN = {len(words)};" in src
+
+
+# the final_exp row function's lanes a row (G) that host_final_exp_lanes
+# builds
+FEXP_LANES = [1, 2, 4, 8, 32]
+
+
+def test_final_exp_build_config_is_a_tested_one(host):
+    """The kernel's lanes a row (FTS_FINAL_EXP_G, as the library reports
+    it) is one of the lane tests', and its shared memory a block is the
+    row's cells times the rows of a one-warp block."""
+    g, smem = _config(host, "final_exp_config", 2)
+    assert g in FEXP_LANES
+    assert smem == (32 // g) * (60 + 18) * 2 * 8 * 4  # 10 Fp12 slots + 18 product cells of Fp2
+
+
+@pytest.mark.parametrize("g", FEXP_LANES)
+def test_final_exp_rows_by_lane_groups_match_plain(host, g):
+    """The final_exp row function by g emulated lanes (the cooperative
+    tower's barriers as on the card) on a random value in [p, 2p), a (0,
+    0) leg's Fp4 value and GT one: equal to the plain version and
+    hostmath, and, at the kernel's own g, to the kernel's host entry."""
+    f = _fexp_rows(host)
+    n = 3
+    want = st.final_exp_plain(f[:n])
+    assert tw.decode_fp12(want) == [hm.final_exp(v) for v in tw.decode_fp12(f[:n])]
+    out = torch.empty_like(f[:n])
+    assert host["final_exp_lanes"](f.data_ptr(), out.data_ptr(), n, g) == 0
+    assert torch.equal(out, want)
+    if g == _config(host, "final_exp_config", 2)[0]:
+        built = torch.empty_like(out)
+        host["final_exp"](f.data_ptr(), built.data_ptr(), n)
+        assert torch.equal(built, want)
 
 
 def _g2pts(rng, n):

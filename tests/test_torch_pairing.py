@@ -19,6 +19,7 @@ from fabric_token_sdk_tpu.crypto import hostmath as ref_hm
 from fabric_token_sdk_tpu.ops import pairing as ref_pr
 from fabric_token_sdk_tpu_torch.crypto import hostmath as hm
 from fabric_token_sdk_tpu_torch.ops import limbs as lb, pairing as pr, stages as st, tower as tw
+from fabric_token_sdk_tpu_torch.ops.field import FP, half_to_words, words_to_half
 
 # The plain versions are many small tensor ops: one intra-op thread runs
 # them faster than several and leaves the other test workers their cores.
@@ -113,3 +114,35 @@ def test_pairing_product_staged_matches_reference():
     got = pr.pairing_product_staged(torch.from_numpy(Pw), torch.from_numpy(Qw), inf_mask=mask)
     want = ref_pr.pairing_product_staged(_ref(Pw), _ref(Qw), inf_mask=np.array(mask))
     assert torch.equal(got, _from_ref(want))
+
+
+def _easy_part(x):
+    """f^((p^6 - 1)(p^2 + 1)) on half-words: the final exponentiation's
+    easy part, whose outputs lie in the cyclotomic subgroup."""
+    t = tw.fp12_mul(tw.fp12_conj(x), tw.fp12_inv(x))
+    return tw.fp12_mul(tw.fp12_frobenius(t, 2), t)
+
+
+def test_cyclotomic_squaring_equals_fp12_sqr_on_cyclotomic_elements():
+    """The plain cyclotomic squaring (the final_exp kernel's) against the
+    general fp12_sqr and hostmath on cyclotomic elements: the easy part's
+    outputs of random values and of a (0, 0) leg's Miller value (which lies
+    in Fp4 = Fp2[w^3]), and GT one; also after a squaring, and on values
+    lifted into [p, 2p)."""
+    rng = random.Random(605)
+    P = torch.from_numpy(pr.encode_g1([None]))
+    Q = torch.from_numpy(pr.encode_g2([hm.g2_mul(hm.G2_GEN, rng.randrange(1, hm.R))]))
+    leg = st.miller_rows(P, Q)  # the (0, 0) leg
+    vals = [tuple((rng.randrange(hm.P), rng.randrange(hm.P)) for _ in range(6)) for _ in range(2)]
+    x = torch.cat([torch.from_numpy(tw.encode_fp12(vals)), leg])
+    cyc = _easy_part(words_to_half(x))
+    one = tw.fp12_one_half(cyc[:, :1])
+    cyc = torch.cat([cyc, one, tw.fp12_sqr(cyc)], dim=1)
+    words = half_to_words(FP.canon(cyc))  # (rows, 6, 2, 8), canonical
+    lifted = lb.ints_to_words([v + hm.P for v in lb.batch_words_to_ints(words)])
+    cyc = torch.cat([cyc, words_to_half(torch.from_numpy(lifted).reshape(words.shape))], dim=1)
+    got = tw.fp12_cyclo_sqr(cyc)
+    assert torch.equal(FP.canon(got), FP.canon(tw.fp12_sqr(cyc)))
+    host = tw.decode_fp12(half_to_words(FP.canon(cyc)))
+    assert tw.decode_fp12(half_to_words(FP.canon(got))) == [hm.fp12_sqr(v) for v in host]
+    assert host[len(vals) + 1] == hm.FP12_ONE
