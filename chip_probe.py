@@ -1,7 +1,8 @@
 #!/usr/bin/env python3
 """Quick first call on the GPU after a kernel change: build, check, stop.
 
-    python3 chip_probe.py [OUT_DIR] [--ladder | --redesign [--sweep all|msm|fexp]]
+    python3 chip_probe.py [OUT_DIR] [--ladder | --redesign [--sweep all|msm|fexp|miller|gtp|pairing]
+                          | --ubench]
 
 Builds every CUDA source of the PyTorch port with `nvcc` and prints each
 source's `ptxas -v` report. Then the window ladder of `g1_mul` and
@@ -39,8 +40,23 @@ values in [p, 2p) too), sweeps g1_msm's lanes a row S in {4, 8, 16, 32}
 (`-DFTS_G1_MSM_S`) and final_exp's G in {1, 2, 4, 8, 16, 32}
 (`-DFTS_FINAL_EXP_G`), each variant held against the built kernel and
 timed at the verify's and the prove's rows, times `g1_mul`/`g2_mul`,
-writes both kernels' SASS with the same counts, and stops. Needs one
-NVIDIA GPU; imports nothing of JAX.
+writes both kernels' SASS with the same counts, and stops. With
+`--redesign --sweep miller` (or `gtp`) it checks `miller` (or
+`gt_product` at K = 1-4) against its plain version on edge rows (a
+(0, 0) leg, the generators, coordinates in [p, 2p)), builds the kernel
+at every G in {1, 2, 4, 8, 16, 32} (`-DFTS_MILLER_G`,
+`-DFTS_GT_PRODUCT_G`), holds each variant against the built kernel,
+times it at the paths' rows (`miller` 128, 992 and 15,872 legs;
+`gt_product` K = 4 at 248 and 3,968 rows, K = 2 at 256 and 4,096),
+prints its ptxas line and the blocks an SM holds
+(`fts_*_occupancy`), writes the kernel's SASS with the same counts, and
+stops; `--sweep pairing` runs both of these, `--sweep all` every sweep.
+With `--ubench` it builds only `csrc/probe_fe2.cu` and prints its
+micro-benchmarks (cycles of a dependent Fp2 product at one call site and
+unrolled at 8 and 64 sites, of an Fp2 addition, and of shared-memory
+loads at strides that meet in few or in all banks), from one warp to
+32 warps an SM, and stops. Needs one NVIDIA GPU; imports
+nothing of JAX.
 """
 import argparse
 import ctypes
@@ -64,15 +80,53 @@ ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
 ap.add_argument("out_dir", nargs="?", default="probe_out")
 ap.add_argument("--ladder", action="store_true", help="stop after the ladder checks and sweep")
 ap.add_argument("--redesign", action="store_true",
-                help="g1_msm and final_exp: checks, the S and G sweeps, SASS; then stop")
-ap.add_argument("--sweep", choices=("all", "msm", "fexp"), default="all",
+                help="g1_msm, final_exp, miller, gt_product: checks, the S and G sweeps, SASS; "
+                     "then stop")
+ap.add_argument("--sweep", choices=("all", "msm", "fexp", "miller", "gtp", "pairing"), default="all",
                 help="with --redesign: which kernel's variants to build and time")
+ap.add_argument("--ubench", action="store_true",
+                help="build csrc/probe_fe2.cu, print its cycle counts, stop")
 args = ap.parse_args()
 if not torch.cuda.is_available():
     sys.exit("chip_probe.py needs an NVIDIA GPU")
 smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                      capture_output=True, text=True, timeout=60)
 print("device", torch.cuda.get_device_name(0), "| nvidia-smi:", smi.stdout.strip(), flush=True)
+if args.ubench:
+    os.makedirs(_build.BUILD_DIR, exist_ok=True)
+    lib = os.path.join(_build.BUILD_DIR, "probe_fe2.so")
+    proc = subprocess.run([_build.find_nvcc(), *_build.NVCC_FLAGS, f"-I{_build.CSRC}", "-o", lib,
+                           os.path.join(_build.CSRC, "probe_fe2.cu")], capture_output=True, text=True)
+    print("build probe_fe2.cu: rc", proc.returncode, "|", " | ".join(
+        ln.strip() for ln in (proc.stdout + proc.stderr).splitlines()
+        if "Used" in ln or "stack" in ln or "error" in ln), flush=True)
+    if proc.returncode:
+        sys.exit(1)
+    fn = ctypes.CDLL(lib).fts_probe_fe2
+    fn.argtypes = [ctypes.c_int] + [ctypes.c_void_p] * 3 + [ctypes.c_int] * 3
+    fn.restype = ctypes.c_int
+    dev = torch.device("cuda")
+    words = torch.randint(0, 1 << 28, (128,), dtype=torch.int32, device=dev)  # below p
+    out = torch.zeros(132 * 32 * 32 * 16, dtype=torch.int32, device=dev)
+    cyc = torch.zeros(132 * 32, dtype=torch.int64, device=dev)
+    n = 1024
+    for which, what in ((0, "Fp2 product, one site"), (1, "Fp2 product, 8 sites"),
+                        (2, "Fp2 product, 64 sites"), (3, "Fp2 addition")):
+        for per_sm in (1, 4, 12, 32):
+            blocks = 132 * per_sm
+            fn(which, words.data_ptr(), out.data_ptr(), cyc.data_ptr(), n, blocks, 0)  # warm-up
+            t = time.perf_counter()
+            rc = fn(which, words.data_ptr(), out.data_ptr(), cyc.data_ptr(), n, blocks, 0)
+            wall = time.perf_counter() - t
+            c = cyc[:blocks].double() / n
+            print(f"ubench {what}, {per_sm} warps an SM: rc {rc}, cycles an op (a warp) mean "
+                  f"{c.mean().item():.1f} max {c.max().item():.1f}; wall {wall * 1e3:.3f} ms",
+                  flush=True)
+    for stride in (1, 16, 17, 64, 65):
+        rc = fn(4, words.data_ptr(), out.data_ptr(), cyc.data_ptr(), n, 1, stride)
+        print(f"ubench 16 dependent shared loads, lane stride {stride} words: rc {rc}, "
+              f"{cyc[0].item() / n:.1f} cycles", flush=True)
+    sys.exit(0)
 t0 = time.perf_counter()
 try:
     _build.build_all()
@@ -181,6 +235,96 @@ def event_ms(call, reps):
     torch.cuda.synchronize()
     return start.elapsed_time(end) / reps
 
+
+def occupancy(lib, name):
+    """Blocks of a kernel an SM holds at once (`fts_<name>_occupancy`)."""
+    blocks = ctypes.c_int()
+    fn = ctypes.CDLL(lib)[f"fts_{name}_occupancy"]
+    fn.restype = ctypes.c_int
+    rc = fn(ctypes.byref(blocks))
+    return blocks.value if rc == 0 else f"error {rc}"
+
+
+if args.redesign and args.sweep in ("all", "miller", "gtp", "pairing"):
+    # ------------------------------------------------------------ miller and gt_product
+    # the built kernels against their plain versions on edge rows, then the
+    # sweep over G lanes a row, each variant held against the built kernel
+    built_lib = {s_: glob.glob(os.path.join(_build.BUILD_DIR, s_.replace(".cu", "-*.so")))[0]
+                 for s_ in ("miller.cu", "gt_product.cu")}
+    stream = torch.cuda.current_stream().cuda_stream
+    sweep_ms, sweep_ptxas = {}, {}
+    if args.sweep in ("all", "miller", "pairing"):
+        print("ptxas miller.cu:", ptxas_line(_build.BUILD_LOG.get("miller.cu", "")),
+              "| blocks an SM", occupancy(built_lib["miller.cu"], "miller"), flush=True)
+        g1s = [hm.g1_mul(hm.G1_GEN, rng.randrange(1, hm.R)) for _ in range(4)]
+        g2s = [hm.g2_mul(hm.G2_GEN, rng.randrange(1, hm.R)) for _ in range(4)]
+        mP = lifted(torch.from_numpy(pr.encode_g1(g1s + [None, hm.G1_GEN])), [1, 3])
+        mQ = lifted(torch.from_numpy(pr.encode_g2(g2s + [g2s[0], hm.G2_GEN])), [2, 3])
+        chk("miller edges", st.miller_rows(mP.to(dev), mQ.to(dev)), st.miller_plain(mP, mQ))
+        g_mil = build_variants("miller.cu", [(("FTS_MILLER_G", g_),) for g_ in (1, 2, 4, 8, 16, 32)])
+        for legs in (128, 992, 15872):
+            idx = torch.arange(legs) % mP.shape[0]
+            lP, lQ = mP[idx].contiguous().to(dev), mQ[idx].contiguous().to(dev)
+            want = st.miller_rows(lP, lQ)
+            for defines, (lib, p_) in g_mil.items():
+                fn = ctypes.CDLL(lib)["fts_miller"]
+                fn.argtypes = [ctypes.c_void_p] * 3 + [ctypes.c_int, ctypes.c_void_p]
+                fn.restype = ctypes.c_int
+                out = torch.empty_like(want)
+
+                def call():
+                    rc = fn(lP.data_ptr(), lQ.data_ptr(), out.data_ptr(), legs, stream)
+                    if rc:
+                        raise RuntimeError(f"miller {defines}: CUDA error {rc}")
+
+                call()
+                torch.cuda.synchronize()
+                chk(f"sweep miller {dict(defines)} {legs} legs vs the built kernel", out, want)
+                key = f"miller {legs} G={defines[0][1]}"
+                sweep_ms[key] = event_ms(call, 3)
+                sweep_ptxas[f"miller G={defines[0][1]}"] = (p_, occupancy(lib, "miller"))
+                print(f"sweep {key}: {sweep_ms[key]:.4f} ms", flush=True)
+        code_summary(write_sass("miller.cu"), r"Function : \S+", SASS_PATS)
+    if args.sweep in ("all", "gtp", "pairing"):
+        print("ptxas gt_product.cu:", ptxas_line(_build.BUILD_LOG.get("gt_product.cu", "")),
+              "| blocks an SM", occupancy(built_lib["gt_product.cu"], "gt_product"), flush=True)
+        vals = [tuple((rng.randrange(hm.P), rng.randrange(hm.P)) for _ in range(6))
+                for _ in range(16)]
+        fw = lifted(torch.from_numpy(tw.encode_fp12(vals)), range(0, 16, 3))
+        for k in (1, 2, 3, 4):
+            fk = fw[: 4 * k].reshape(4, k, 6, 2, 8).contiguous()
+            chk(f"gt_product K={k} edges", st.gt_product_rows(fk.to(dev)), st.gt_product_plain(fk))
+        g_gtp = build_variants("gt_product.cu",
+                               [(("FTS_GT_PRODUCT_G", g_),) for g_ in (1, 2, 4, 8, 16, 32)])
+        for k, n_rows in ((4, 248), (4, 3968), (2, 256), (2, 4096)):
+            idx = torch.arange(n_rows * k) % fw.shape[0]
+            fr = fw[idx].reshape(n_rows, k, 6, 2, 8).contiguous().to(dev)
+            want = st.gt_product_rows(fr)
+            for defines, (lib, p_) in g_gtp.items():
+                fn = ctypes.CDLL(lib)["fts_gt_product"]
+                fn.argtypes = [ctypes.c_void_p] * 2 + [ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
+                fn.restype = ctypes.c_int
+                out = torch.empty_like(want)
+
+                def call():
+                    rc = fn(fr.data_ptr(), out.data_ptr(), n_rows, k, stream)
+                    if rc:
+                        raise RuntimeError(f"gt_product {defines}: CUDA error {rc}")
+
+                call()
+                torch.cuda.synchronize()
+                chk(f"sweep gt_product {dict(defines)} K={k} {n_rows} rows vs the built kernel",
+                    out, want)
+                key = f"gt_product K={k} {n_rows} G={defines[0][1]}"
+                sweep_ms[key] = event_ms(call, 20)
+                sweep_ptxas[f"gt_product G={defines[0][1]}"] = (p_, occupancy(lib, "gt_product"))
+                print(f"sweep {key}: {sweep_ms[key]:.4f} ms", flush=True)
+        code_summary(write_sass("gt_product.cu"), r"Function : \S+", SASS_PATS)
+    print("sweep ms", {k: round(v, 4) for k, v in sweep_ms.items()}, flush=True)
+    print("sweep ptxas, blocks an SM", sweep_ptxas, flush=True)
+    if args.sweep != "all":
+        print("failed:", bad)
+        sys.exit(1 if bad else 0)
 
 if args.redesign:
     # ------------------------------------------------------------ g1_msm and final_exp

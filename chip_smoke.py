@@ -58,7 +58,8 @@ version and timed (`[msm]`); `g1_mul`, `g2_mul` and the select
 multiexp are timed on all-zero, all-0xF and random scalars at the
 1,024-tx prove's rows (`[secret-scalars]`); the kernels redesigned
 for the H100 print their lanes, ptxas line and share of bound
-(`[ladder]`, `[redesign]`).
+(`[ladder]`, `[redesign]`; for `final_exp`, `miller` and `gt_product`
+also the shared memory a block, for the last two the blocks an SM).
 
 Phases print one line each. Before the last line come the GPU's name
 and power limit as `nvidia-smi` reports them and one JSON object with
@@ -1147,6 +1148,21 @@ def main() -> int:
     v_sel, v_fe = prove_stats["g1_msm_select"][0], range_stats["final_exp"]
     small, big = BLOCK_TXS * ROWS_PER_TX, BATCH_TXS * ROWS_PER_TX
     (msm_s,), (fe_g, fe_smem) = built_config("g1_msm.cu", 1), built_config("final_exp.cu", 2)
+    (mil_g, mil_smem), (gtp_g, gtp_smem) = (built_config("miller.cu", 2),
+                                            built_config("gt_product.cu", 2))
+    v_mil, v_k4, v_k2 = (range_stats["miller"], range_stats["gt_product"],
+                         prove_stats["gt_product_k2"][0])
+
+    def occupancy(source: str) -> int:
+        """Blocks of a source's kernel an SM holds at once, as the card
+        counts them (`fts_<kernel>_occupancy`)."""
+        fn = getattr(_build.build_all()[source], f"fts_{source[:-3]}_occupancy")
+        fn.restype = ctypes.c_int
+        blocks = ctypes.c_int()
+        if fn(ctypes.byref(blocks)) != 0:
+            fail(f"{source}: its occupancy entry failed")
+        return blocks.value
+
     redesign = {
         "g1_msm": {
             "lanes": f"S {msm_s}",
@@ -1165,6 +1181,26 @@ def main() -> int:
             "rows": f"{v_fe['rows_block']}/{v_fe['rows_batch']}",
             "ms": (v_fe["ms_block"], v_fe["ms_batch"]),
             "bound": (v_fe["bound_block"][0], v_fe["bound_batch"][0])},
+        "miller": {
+            "lanes": f"G {mil_g}, {mil_smem} B dynamic shared memory a block, "
+                     f"{occupancy('miller.cu')} blocks an SM",
+            "ptxas": ptxas_of("miller.cu"),
+            "rows": f"{v_mil['rows_block']}/{v_mil['rows_batch']}",
+            "ms": (v_mil["ms_block"], v_mil["ms_batch"]),
+            "bound": (v_mil["bound_block"][0], v_mil["bound_batch"][0])},
+        "gt_product": {
+            "lanes": f"G {gtp_g}, {gtp_smem} B dynamic shared memory a block, "
+                     f"{occupancy('gt_product.cu')} blocks an SM",
+            "ptxas": ptxas_of("gt_product.cu"),
+            "rows": f"K = 4 {v_k4['rows_block']}/{v_k4['rows_batch']}",
+            "ms": (v_k4["ms_block"], v_k4["ms_batch"]),
+            "bound": (v_k4["bound_block"][0], v_k4["bound_batch"][0])},
+        "gt_product_k2": {
+            "lanes": f"G {gtp_g}",
+            "ptxas": ptxas_of("gt_product.cu"),
+            "rows": f"K = 2 {v_k2['rows_block']}/{v_k2['rows_batch']}",
+            "ms": (v_k2["ms_block"], v_k2["ms_batch"]),
+            "bound": (v_k2["bound_block"][0], v_k2["bound_batch"][0])},
     }
     for v in redesign.values():
         v["share"] = tuple(b / m for b, m in zip(v["bound"], v["ms"]))
@@ -1543,6 +1579,7 @@ def main() -> int:
             row["launches_1in1out_prove"] = launches_pwf[name]
             row["zero_vs_random_scalars_ms"] = zero_random
             row["secret_scalars_ms"] = secret
+        if name in redesign:
             v = redesign[name]
             row.update({"lanes": v["lanes"], "ptxas": v["ptxas"], "share_batch": v["share"][1]})
         kernels.append(row)

@@ -8,13 +8,16 @@
 // c[5]) over Fp6 = Fp2[v]/(v^3 - XI), w^2 = v), with its Frobenius
 // constants FROB_GAMMA.
 //
-// Where the values live. A row's Fp12 values are 10 slots of 6 Fp2
-// cells in shared memory, with 18 product cells beside them: cell c of a
-// row is 2 elements of 8 words, word k of element e at col[((c * 2 + e)
-// * 8 + k) * stride] in the row's column; the rows of a block interleave
-// word by word (stride = rows a block). Nothing is kept in local memory
-// and nothing is passed by value to a call: every op is inlined once into
-// the kernel's program loop, and its live registers are a few Fp2.
+// Where the values live. A row's values are Fp2 cells in shared
+// memory: final_exp's 10 slots of 6 cells (an Fp12 each), or the fewer
+// cells a kernel names (Row's NC: gt_product's 2 slots, the Miller
+// loop's f, T, Q and step temporaries), the last 18 of a row its
+// product cells. Cell c of a row is 2 elements of 8 words, word k of
+// element e at col[((c * 2 + e) * 8 + k) * stride] in the row's column;
+// the rows of a block interleave word by word (stride = rows a block).
+// Nothing is kept in local memory and nothing is passed by value to a
+// call: every op is inlined once into the kernel's program loop, and its
+// live registers are a few Fp2.
 //
 // How an op runs. Each op is a product phase, the independent Fp2
 // products of its formula (an operand is a sum of cells picked by a
@@ -49,7 +52,7 @@ using Group = coop::Group<1>;
 using Fe = coop::FeT<1>;
 using Fe2 = coop::Fe2<1>;
 
-// slots of Fp12 (6 cells each), then the product cells
+// final_exp's row: slots of Fp12 (6 cells each), then the product cells
 constexpr int SLOTS = 10;
 constexpr int CELL_P = SLOTS * 6;
 constexpr int NPROD = 18;
@@ -57,7 +60,8 @@ constexpr int CELLS = CELL_P + NPROD;
 // the inverse's scratch: cells of slots 6 and 7, free until the Straus pass
 constexpr int CELL_N = 6 * 6, CELL_C = CELL_N + 3, CELL_T = CELL_C + 3, CELL_NI = CELL_T + 1;
 
-// words of an Fp12 in memory, (6, 2, 8); shared-memory words a row
+// words of an Fp12 in memory, (6, 2, 8); shared-memory words of
+// final_exp's row
 constexpr int GT_WORDS = 12 * NW;
 constexpr int ROW_WORDS = CELLS * 2 * NW;
 
@@ -129,8 +133,15 @@ __device__ __forceinline__ Fe fe_inv(const Group& g, const Fe& a) {
 
 // ---------------------------------------------------------------- a row's cells
 
-template <int G>
+// A row of NC cells, the last NPROD of them its product cells. The
+// default is final_exp's ten slots; a kernel that needs fewer slots
+// names its own count (miller.cu, gt_product.cu), so that more rows fit
+// an SM.
+template <int G, int NC = CELLS>
 struct Row {
+  static_assert(NC >= NPROD, "a row holds its product cells");
+  static constexpr int P = NC - NPROD;       // the first product cell
+  static constexpr int WORDS = NC * 2 * NW;  // shared-memory words a row
   Group g;
   uint32_t grp;   // this lane's place in the row, 0 .. G-1
   uint32_t* col;  // the row's column of cells
@@ -174,8 +185,8 @@ struct Row {
 
 // sum of the cells base + j for the set bits j of mask; with conj the odd
 // cells enter negated (a conjugated Fp12)
-template <int G>
-__device__ __forceinline__ Fe2 cell_sum(const Row<G>& r, int base, uint32_t mask,
+template <int G, int NC>
+__device__ __forceinline__ Fe2 cell_sum(const Row<G, NC>& r, int base, uint32_t mask,
                                              bool conj) {
   Fe2 s{coop::fe_zero<1>(), coop::fe_zero<1>()};
   bool first = true;
@@ -195,8 +206,8 @@ __device__ __forceinline__ Fe2 cell_sum(const Row<G>& r, int base, uint32_t mask
 }
 
 // P[q] = A_q * B_q (or A_q^2) for q < nq, product q by lane q mod G
-template <bool SQR, int G>
-__device__ __forceinline__ void products(const Row<G>& r, const uint16_t* desc, int nq,
+template <bool SQR, int G, int NC>
+__device__ __forceinline__ void products(const Row<G, NC>& r, const uint16_t* desc, int nq,
                                          int a0, int b0, bool conj_b) {
   const int per = (nq + G - 1) / G;
 #pragma unroll 1
@@ -210,7 +221,7 @@ __device__ __forceinline__ void products(const Row<G>& r, const uint16_t* desc, 
     } else {
       p = coop::fe2_mul(r.g, a, cell_sum(r, b0, d >> 8, conj_b));
     }
-    if (q < nq) r.store(CELL_P + q, p);
+    if (q < nq) r.store(r.P + q, p);
   }
   r.sync();
 }
@@ -218,18 +229,18 @@ __device__ __forceinline__ void products(const Row<G>& r, const uint16_t* desc, 
 // component i of the Fp6 Karatsuba combine of the 6 product cells from
 // P0 + at (t0, t1, t2, t12, t01, t02): t0 + XI (t12 - t1 - t2),
 // t01 - t0 - t1 + XI t2, t02 - t0 - t2 + t1
-template <int G>
-__device__ __forceinline__ Fe2 fp6_coef(const Row<G>& r, int at, int i) {
+template <int G, int NC>
+__device__ __forceinline__ Fe2 fp6_coef(const Row<G, NC>& r, int at, int i) {
   const Group& g = r.g;
-  const Fe2 t0 = r.load(CELL_P + at), t1 = r.load(CELL_P + at + 1),
-                 t2 = r.load(CELL_P + at + 2);
+  const Fe2 t0 = r.load(r.P + at), t1 = r.load(r.P + at + 1),
+                 t2 = r.load(r.P + at + 2);
   if (i == 0)
-    return coop::fe2_add(g, t0, fe2_mul_xi(g, coop::fe2_sub(g, r.load(CELL_P + at + 3),
+    return coop::fe2_add(g, t0, fe2_mul_xi(g, coop::fe2_sub(g, r.load(r.P + at + 3),
                                                               coop::fe2_add(g, t1, t2))));
   if (i == 1)
-    return coop::fe2_add(g, coop::fe2_sub(g, r.load(CELL_P + at + 4), coop::fe2_add(g, t0, t1)),
+    return coop::fe2_add(g, coop::fe2_sub(g, r.load(r.P + at + 4), coop::fe2_add(g, t0, t1)),
                          fe2_mul_xi(g, t2));
-  return coop::fe2_add(g, coop::fe2_sub(g, r.load(CELL_P + at + 5), coop::fe2_add(g, t0, t2)),
+  return coop::fe2_add(g, coop::fe2_sub(g, r.load(r.P + at + 5), coop::fe2_add(g, t0, t2)),
                        t1);
 }
 
@@ -237,8 +248,8 @@ __device__ __forceinline__ Fe2 fp6_coef(const Row<G>& r, int at, int i) {
 // Each op reads slot a (and b) and writes slot dst, which may be either.
 
 // dst = a * b, or a * conj(b)
-template <int G>
-__device__ __forceinline__ void op_mul(const Row<G>& r, int dst, int a, int b, bool conj_b) {
+template <int G, int NC>
+__device__ __forceinline__ void op_mul(const Row<G, NC>& r, int dst, int a, int b, bool conj_b) {
   products<false>(r, Q_MUL, 18, a * 6, b * 6, conj_b);
   // c0 = v0 + v v1, c1 = v01 - v0 - v1 (v (x0, x1, x2) = (XI x2, x0, x1)),
   // v0, v1, v01 the Fp6 products at P0, P6, P12: coefficient 2i is
@@ -262,8 +273,8 @@ __device__ __forceinline__ void op_mul(const Row<G>& r, int dst, int a, int b, b
 }
 
 // dst = a^2 for a in the cyclotomic subgroup (Granger-Scott)
-template <int G>
-__device__ __forceinline__ void op_cyclo_sqr(const Row<G>& r, int dst, int a) {
+template <int G, int NC>
+__device__ __forceinline__ void op_cyclo_sqr(const Row<G, NC>& r, int dst, int a) {
   products<true>(r, Q_CSQR, 9, a * 6, 0, false);
   // pair p = (c_p, c_p+3): T_even = a^2 + XI b^2, T_odd = (a + b)^2 - a^2 -
   // b^2; coefficient j takes T of pair (0, 2, 1, 0, 2, 1)[j], the odd T
@@ -273,10 +284,10 @@ __device__ __forceinline__ void op_cyclo_sqr(const Row<G>& r, int dst, int a) {
 #pragma unroll 1
   for (int j = (int)r.grp; j < 6; j += G) {
     const int p = (j == 1 || j == 4) ? 2 : (j == 2 || j == 5) ? 1 : 0;
-    const Fe2 a2 = r.load(CELL_P + 3 * p), b2 = r.load(CELL_P + 3 * p + 1);
+    const Fe2 a2 = r.load(r.P + 3 * p), b2 = r.load(r.P + 3 * p + 1);
     Fe2 t;
     if (j & 1) {
-      t = coop::fe2_sub(g, coop::fe2_sub(g, r.load(CELL_P + 3 * p + 2), a2), b2);
+      t = coop::fe2_sub(g, coop::fe2_sub(g, r.load(r.P + 3 * p + 2), a2), b2);
       if (j == 1) t = fe2_mul_xi(g, t);
     } else {
       t = coop::fe2_add(g, a2, fe2_mul_xi(g, b2));
@@ -291,8 +302,8 @@ __device__ __forceinline__ void op_cyclo_sqr(const Row<G>& r, int dst, int a) {
 
 // dst = a^(p^n), n = 1, 2, 3: conjugate each coefficient when n is odd,
 // then times gamma_j
-template <int G>
-__device__ __forceinline__ void op_frobenius(const Row<G>& r, int dst, int a, int n) {
+template <int G, int NC>
+__device__ __forceinline__ void op_frobenius(const Row<G, NC>& r, int dst, int a, int n) {
   const int per = (6 + G - 1) / G;
 #pragma unroll 1
   for (int i = 0; i < per; ++i) {
@@ -313,8 +324,8 @@ __device__ __forceinline__ void op_frobenius(const Row<G>& r, int dst, int a, in
 }
 
 // dst = a, or conj(a) (the odd coefficients negated)
-template <int G>
-__device__ __forceinline__ void op_copy(const Row<G>& r, int dst, int a, bool conj) {
+template <int G, int NC>
+__device__ __forceinline__ void op_copy(const Row<G, NC>& r, int dst, int a, bool conj) {
 #pragma unroll 1
   for (int j = 0; j < 6; ++j) {
     if (!r.owns(j)) continue;
@@ -326,8 +337,8 @@ __device__ __forceinline__ void op_copy(const Row<G>& r, int dst, int a, bool co
 }
 
 // dst = a^-1 = (c0 - c1 w) / (c0^2 - v c1^2), as bn254_tower.cuh's fp12_inv
-template <int G>
-__device__ __forceinline__ void op_inv(const Row<G>& r, int dst, int a) {
+template <int G, int NC>
+__device__ __forceinline__ void op_inv(const Row<G, NC>& r, int dst, int a) {
   const Group& g = r.g;
   // n = c0^2 - v c1^2: n_j = u_j - (v w)_j for u = c0^2 at P0, w = c1^2 at P6
   products<true>(r, Q_INV1, 12, a * 6, 0, false);
@@ -342,9 +353,9 @@ __device__ __forceinline__ void op_inv(const Row<G>& r, int dst, int a) {
   products<false>(r, Q_INV2, 6, CELL_N, CELL_N, false);
   {
     const Fe2 c[3] = {
-        coop::fe2_sub(g, r.load(CELL_P + 0), fe2_mul_xi(g, r.load(CELL_P + 3))),
-        coop::fe2_sub(g, fe2_mul_xi(g, r.load(CELL_P + 1)), r.load(CELL_P + 4)),
-        coop::fe2_sub(g, r.load(CELL_P + 2), r.load(CELL_P + 5))};
+        coop::fe2_sub(g, r.load(r.P + 0), fe2_mul_xi(g, r.load(r.P + 3))),
+        coop::fe2_sub(g, fe2_mul_xi(g, r.load(r.P + 1)), r.load(r.P + 4)),
+        coop::fe2_sub(g, r.load(r.P + 2), r.load(r.P + 5))};
 #pragma unroll
     for (int j = 0; j < 3; ++j)
       if (r.owns(j)) r.store(CELL_C + j, c[j]);
@@ -354,8 +365,8 @@ __device__ __forceinline__ void op_inv(const Row<G>& r, int dst, int a) {
   products<false>(r, Q_INV3, 3, CELL_N, CELL_C, false);
   {
     const Fe2 t = coop::fe2_add(
-        g, fe2_mul_xi(g, coop::fe2_add(g, r.load(CELL_P + 0), r.load(CELL_P + 1))),
-        r.load(CELL_P + 2));
+        g, fe2_mul_xi(g, coop::fe2_add(g, r.load(r.P + 0), r.load(r.P + 1))),
+        r.load(r.P + 2));
     const Fe norm =
         coop::fe_add(g, coop::fe_mul(g, t.c0, t.c0), coop::fe_mul(g, t.c1, t.c1));
     const Fe ni = fe_inv(g, norm);
@@ -368,7 +379,7 @@ __device__ __forceinline__ void op_inv(const Row<G>& r, int dst, int a) {
   products<false>(r, Q_INV4, 3, CELL_C, CELL_T, false);
 #pragma unroll
   for (int j = 0; j < 3; ++j)
-    if (r.owns(j)) r.store(CELL_NI + j, r.load(CELL_P + j));
+    if (r.owns(j)) r.store(CELL_NI + j, r.load(r.P + j));
   r.sync();
   // (c0 n^-1, -c1 n^-1)
   products<false>(r, Q_INV5, 12, a * 6, CELL_NI, false);

@@ -1,6 +1,7 @@
 // The optimal-ate Miller loop and the final exponentiation on BN254 as
-// device functions, shared by miller.cu, final_exp.cu and
-// pairing_fused.cu.
+// device functions of one thread a row, for pairing_fused.cu (the staged
+// kernels miller.cu and final_exp.cu run the same mathematics on the
+// cooperative tower of bn254_gt_coop.cuh).
 //
 // Miller loop (the JAX package's fabric_token_sdk_tpu/ops/pairing.py:
 // miller_loop): T starts at Q (Jacobian, Z = 1), and for each bit of

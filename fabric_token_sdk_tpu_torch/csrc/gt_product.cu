@@ -1,61 +1,175 @@
-// gt_product: per-row product of K Fp12 (Miller) values, one thread per
-// row.
+// gt_product: per-row product of K Fp12 (Miller) values, each row spread
+// over G lanes of a warp on the cooperative tower of bn254_gt_coop.cuh.
 //
 // Replaces the JAX programs gt_product_k4_tile and gt_product_k2_tile
 // (fabric_token_sdk_tpu/ops/pairing.py:_product_rows): the K legs of a
 // pairing-product row multiplied together before the shared final
 // exponentiation. The product is a unique field element, so the order
-// (here left to right, K - 1 products) does not change it. The loop runs
-// over the public K only: on the prove path (K = 2) the values derive
-// from secrets, and no branch or address depends on them.
+// (here left to right, K - 1 products) does not change it: it equals
+// the plain version's pairwise tree. The loop runs over the public K
+// only: on the prove path (K = 2) the values derive from secrets, and
+// no branch or address depends on them.
 //
 // Layout: f (n, k, 6, 2, 8) Montgomery Fp12 in [0, 2p); out (n, 6, 2, 8)
 // canonical Montgomery.
 //
 // What bounds it on the H100: integer multiplies, K - 1 Fp12 products of
-// 54 base products a row, against 384 (K + 1) bytes moved; one warp a
-// block.
-#include "bn254_tower.cuh"
+// 54 base products a row, against 384 (K + 1) bytes moved. The design:
+// a row's accumulator and the leg it takes in are two Fp12 slots in
+// shared memory (with the product cells 30 cells, 1,920 B a row), each
+// product gtc::op_mul's 18 Fp2 products and 6 output coefficients split
+// over the row's G lanes; no stack. G is from the sweep of
+// chip_probe.py --redesign --sweep gtp.
+#include "bn254_gt_coop.cuh"
 
 using namespace bn254;
 
+#ifndef FTS_GT_PRODUCT_G
+#define FTS_GT_PRODUCT_G 8  // lanes a row (chip_probe.py overrides it for its sweep)
+#endif
+
 namespace {
 
-constexpr int FP12_WORDS = 12 * NW;
+constexpr int G = FTS_GT_PRODUCT_G;
+static_assert(32 % G == 0, "a row's lanes tile a warp");
+constexpr int THREADS = 32;  // one warp a block
+constexpr int ROWS_PER_BLOCK = THREADS / G;
+// the accumulator (slot 0) and a leg (slot 1), then the product cells
+constexpr int NC = 2 * 6 + gtc::NPROD;
+template <int NG>
+using Row = gtc::Row<NG, NC>;
+// a block's cells: the dynamic shared memory of a launch
+constexpr size_t SMEM = (size_t)ROWS_PER_BLOCK * Row<G>::WORDS * 4;
 
-__device__ __forceinline__ void gt_product_row(const uint32_t* __restrict__ f,
-                                               uint32_t* __restrict__ out, int row, int k) {
-  const uint32_t* src = f + (size_t)row * k * FP12_WORDS;
-  Fp12 acc = fp12_load(src);
+// this lane's coefficients of the Fp12 at src into slot `slot`
+template <int NG>
+__device__ __forceinline__ void load_leg(const Row<NG>& r, const uint32_t* __restrict__ src,
+                                         int slot) {
+#pragma unroll
+  for (int j = 0; j < 6; ++j) {
+    if (!r.owns(j)) continue;
+    gtc::Fe2 v;
+#pragma unroll
+    for (int k = 0; k < NW; ++k) {
+      v.c0.w[k] = __ldg(src + (2 * j) * NW + k);
+      v.c1.w[k] = __ldg(src + (2 * j + 1) * NW + k);
+    }
+    r.store(slot * 6 + j, v);
+  }
+  r.sync();
+}
+
+// One row by this lane of NG. `live` is false for a row past the last: it
+// runs (every lane takes part in every barrier) and stores nothing.
+template <int NG>
+__device__ __forceinline__ void gt_product_row(const Row<NG>& r, const uint32_t* __restrict__ f,
+                                               uint32_t* __restrict__ out, int row, int k,
+                                               bool live) {
+  const uint32_t* src = f + (size_t)row * k * gtc::GT_WORDS;
+  load_leg(r, src, 0);
 #pragma unroll 1
-  for (int j = 1; j < k; ++j) acc = fp12_mul(acc, fp12_load(src + (size_t)j * FP12_WORDS));
-  fp12_store_canon(out + (size_t)row * FP12_WORDS, acc);
+  for (int j = 1; j < k; ++j) {
+    load_leg(r, src + (size_t)j * gtc::GT_WORDS, 1);
+    gtc::op_mul(r, 0, 0, 1, false);
+  }
+  uint32_t* dst = out + (size_t)row * gtc::GT_WORDS;
+#pragma unroll
+  for (int j = 0; j < 6; ++j) {
+    if (!live || !r.owns(j)) continue;
+    const gtc::Fe2 v = r.load(j);
+    const gtc::Fe c0 = coop::fe_canon(r.g, v.c0), c1 = coop::fe_canon(r.g, v.c1);
+#pragma unroll
+    for (int w = 0; w < NW; ++w) {
+      dst[(2 * j) * NW + w] = c0.w[w];
+      dst[(2 * j + 1) * NW + w] = c1.w[w];
+    }
+  }
 }
 
 }  // namespace
+
+// the kernel's lanes a row and its dynamic shared memory a block, as
+// this library was built
+extern "C" int fts_gt_product_config(int* g, int* smem) {
+  *g = G;
+  *smem = (int)SMEM;
+  return 0;
+}
 
 #ifdef FTS_HOST_CHECK
-extern "C" void host_gt_product(const uint32_t* f, uint32_t* out, int n, int k) {
-  for (int row = 0; row < n; ++row) gt_product_row(f, out, row, k);
-}
-#else
 namespace {
-constexpr int THREADS = 32;
-
-__global__ void gt_product_kernel(const uint32_t* __restrict__ f, uint32_t* __restrict__ out,
-                                  int n, int k) {
-  int row = blockIdx.x * blockDim.x + threadIdx.x;
-  if (row < n) gt_product_row(f, out, row, k);
+// The rows by NG emulated lanes (host_check.h), a row's cells in a host
+// buffer.
+template <int NG>
+void host_rows(const uint32_t* f, uint32_t* out, int n, int k) {
+  std::vector<uint32_t> cells(Row<NG>::WORDS);
+  for (int row = 0; row < n; ++row) {
+    auto body = [&](int lane) {
+      const Row<NG> r((uint32_t)lane, cells.data(), 1);
+      gt_product_row<NG>(r, f, out, row, k, true);
+    };
+    coop::host_group(NG, body);
+  }
 }
 }  // namespace
+
+// the kernel's own configuration
+extern "C" void host_gt_product(const uint32_t* f, uint32_t* out, int n, int k) {
+  host_rows<G>(f, out, n, k);
+}
+
+// the same rows by g lanes (1, 2, 4, 8, 16 or 32); returns -1 for any
+// other
+extern "C" int host_gt_product_lanes(const uint32_t* f, uint32_t* out, int n, int k, int g) {
+  switch (g) {
+    case 1: return host_rows<1>(f, out, n, k), 0;
+    case 2: return host_rows<2>(f, out, n, k), 0;
+    case 4: return host_rows<4>(f, out, n, k), 0;
+    case 8: return host_rows<8>(f, out, n, k), 0;
+    case 16: return host_rows<16>(f, out, n, k), 0;
+    case 32: return host_rows<32>(f, out, n, k), 0;
+    default: return -1;
+  }
+}
+#else
+#include <cuda_runtime.h>
+
+namespace {
+__global__ void __launch_bounds__(THREADS) gt_product_kernel(const uint32_t* __restrict__ f,
+                                                             uint32_t* __restrict__ out, int n,
+                                                             int k) {
+  extern __shared__ uint32_t cells[];
+  const uint32_t slot = threadIdx.x / G;  // the row's place in the block
+  const Row<G> r(threadIdx.x % G, cells + slot, ROWS_PER_BLOCK);
+  const int row = (int)(blockIdx.x * ROWS_PER_BLOCK + slot);
+  const bool live = row < n;  // a clamped row still takes part in every barrier
+  gt_product_row<G>(r, f, out, live ? row : n - 1, k, live);
+}
+
+// lets a launch take SMEM of dynamic shared memory (above 48 KB only
+// by the attribute)
+cudaError_t prepare() {
+  if (SMEM <= 48 * 1024) return cudaSuccess;
+  return cudaFuncSetAttribute(gt_product_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                              (int)SMEM);
+}
+}  // namespace
+
+// the blocks of the kernel an SM holds at once, as the card counts them
+extern "C" int fts_gt_product_occupancy(int* blocks) {
+  cudaError_t e = prepare();
+  if (e != cudaSuccess) return (int)e;
+  return (int)cudaOccupancyMaxActiveBlocksPerMultiprocessor(blocks, gt_product_kernel, THREADS,
+                                                               SMEM);
+}
 
 extern "C" int fts_gt_product(const void* f, void* out, int n, int k, void* stream) {
   if (n <= 0) return 0;
   if (k <= 0) return (int)cudaErrorInvalidValue;
-  cudaError_t e = ensure_stack();
+  cudaError_t e = prepare();
   if (e != cudaSuccess) return (int)e;
-  int blocks = (n + THREADS - 1) / THREADS;
-  gt_product_kernel<<<blocks, THREADS, 0, (cudaStream_t)stream>>>(
+  int blocks = (n + ROWS_PER_BLOCK - 1) / ROWS_PER_BLOCK;
+  gt_product_kernel<<<blocks, THREADS, SMEM, (cudaStream_t)stream>>>(
       (const uint32_t*)f, (uint32_t*)out, n, k);
   return (int)cudaGetLastError();
 }

@@ -14,9 +14,9 @@
 //   (_fused_pairing_product's body after its all_gather).
 //
 // The Miller loop and the final exponentiation are those of
-// bn254_pairing.cuh (the miller and final_exp kernels run the same
-// code), so a row's GT value equals the staged sequence miller ->
-// gt_product -> final_exp. The K legs are multiplied left to right; the
+// bn254_pairing.cuh (the miller and final_exp kernels compute the same
+// values on the cooperative tower of bn254_gt_coop.cuh), so a row's GT
+// value equals the staged sequence miller -> gt_product -> final_exp. The K legs are multiplied left to right; the
 // product commutes and GT values are canonical, so the order does not
 // change the result. A masked leg (mask != 0) contributes GT one, by a
 // select after its Miller loop, as the reference's jnp.where: no branch
@@ -24,9 +24,9 @@
 // (0, 0) leg runs through the loop, its Miller value lies in Fp4, and
 // the final exponentiation sends it to one, as on the staged path.
 //
-// Stack: the Miller loop (2,424 bytes in miller.cu) and the final
-// exponentiation (9,776 bytes in final_exp.cu) are __noinline__ calls
-// here, so their frames do not add up; the row frame holds the running
+// Stack: the Miller loop (2,424 bytes when it was miller.cu's) and the
+// final exponentiation (9,776 bytes when it was final_exp.cu's) are
+// __noinline__ calls here, so their frames do not add up; the row frame holds the running
 // product and one leg's value. ensure_stack raises the limit to 16 KB.
 //
 // Layout: P (n, k, 2, 8), Q (n, k, 2, 2, 8) Montgomery affine in

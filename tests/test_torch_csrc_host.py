@@ -44,7 +44,11 @@ ENTRY = {  # name: (source in csrc/, symbol, argtypes[, restype])
     "g2_add": ("g2_add", "host_g2_add", [_P, _P, _P, _I]),
     "g2_to_affine": ("g2_to_affine", "host_g2_to_affine", [_P, _P, _I]),
     "miller": ("miller", "host_miller", [_P, _P, _P, _I]),
+    "miller_lanes": ("miller", "host_miller_lanes", [_P, _P, _P, _I, _I], _I),
+    "miller_config": ("miller", "fts_miller_config", [_P, _P], _I),
     "gt_product": ("gt_product", "host_gt_product", [_P, _P, _I, _I]),
+    "gt_product_lanes": ("gt_product", "host_gt_product_lanes", [_P, _P, _I, _I, _I], _I),
+    "gt_product_config": ("gt_product", "fts_gt_product_config", [_P, _P], _I),
     "final_exp": ("final_exp", "host_final_exp", [_P, _P, _I]),
     "final_exp_lanes": ("final_exp", "host_final_exp_lanes", [_P, _P, _I, _I], _I),
     "final_exp_config": ("final_exp", "fts_final_exp_config", [_P, _P], _I),
@@ -364,6 +368,90 @@ def test_final_exp_rows_by_lane_groups_match_plain(host, g):
 
 def _g2pts(rng, n):
     return [hm.g2_mul(hm.G2_GEN, rng.randrange(1, hm.R)) for _ in range(n)]
+
+
+# the lanes a row (G) that host_miller_lanes and host_gt_product_lanes
+# build
+GT_LANES = [1, 2, 4, 8, 16, 32]
+
+
+@pytest.fixture(scope="module")
+def miller_legs():
+    """A random leg with every coordinate lifted into [p, 2p), a (0, 0)
+    leg and the generator pair, with their plain Miller values (one plain
+    run for every lane count)."""
+    rng = random.Random(54)
+    P = _lift(torch.from_numpy(pr.encode_g1(_pts(rng, 1) + [None, hm.G1_GEN])), [0])
+    Q = _lift(torch.from_numpy(pr.encode_g2(_g2pts(rng, 2) + [hm.G2_GEN])), [0])
+    return P.contiguous(), Q.contiguous(), st.miller_plain(P, Q)
+
+
+def test_miller_build_config_is_a_tested_one(host):
+    """The kernel's lanes a leg (FTS_MILLER_G, as the library reports it)
+    is one of the lane tests', and its shared memory a block is the leg's
+    cells times the legs of a one-warp block."""
+    g, smem = _config(host, "miller_config", 2)
+    assert g in GT_LANES
+    # f, T, Q, pi(Q), -pi^2(Q), (xp, 0), (yp, 0), 6 step products, the
+    # line and 4 add-step values, x2 Z^2, y2 Z^3, Z^2, y2 Z of the next
+    # add, 18 product cells
+    assert smem == (32 // g) * (6 + 3 + 6 + 2 + 6 + 7 + 4 + 18) * 2 * 8 * 4
+
+
+@pytest.mark.parametrize("g", GT_LANES)
+def test_miller_rows_by_lane_groups_match_plain(host, miller_legs, g):
+    """The miller row function by g emulated lanes (the barriers between
+    its phases as on the card) on a leg in [p, 2p), a (0, 0) leg and the
+    generator pair: equal to the plain version bit for bit, and, at the
+    kernel's own g, to the kernel's host entry."""
+    P, Q, want = miller_legs
+    out = torch.empty_like(want)
+    assert host["miller_lanes"](P.data_ptr(), Q.data_ptr(), out.data_ptr(), 3, g) == 0
+    assert torch.equal(out, want)
+    if g == _config(host, "miller_config", 2)[0]:
+        built = torch.empty_like(want)
+        host["miller"](P.data_ptr(), Q.data_ptr(), built.data_ptr(), 3)
+        assert torch.equal(built, want)
+
+
+def test_gt_product_build_config_is_a_tested_one(host):
+    """As for miller: the built G is a tested one, and a row is two Fp12
+    slots and the product cells."""
+    g, smem = _config(host, "gt_product_config", 2)
+    assert g in GT_LANES
+    assert smem == (32 // g) * (12 + 18) * 2 * 8 * 4
+
+
+@pytest.mark.parametrize("g", GT_LANES)
+@pytest.mark.parametrize("k", [2, 3, 4])
+def test_gt_product_rows_by_lane_groups_match_plain(host, k, g):
+    """The gt_product row function by g emulated lanes over K legs (random
+    values, some lifted into [p, 2p), a (0, 0) leg's Fp4 Miller value and
+    GT one): equal to the plain version's pairwise tree and to hostmath's
+    product, and, at the kernel's own g, to the kernel's host entry."""
+    rng = random.Random(55 + k)
+    vals = [tuple((rng.randrange(hm.P), rng.randrange(hm.P)) for _ in range(6))
+            for _ in range(2 * k)]
+    f = _lift(torch.from_numpy(tw.encode_fp12(vals)), range(0, 2 * k, 2))
+    f[1] = _fexp_rows(host)[1]  # the (0, 0) leg's Miller value
+    f[2 * k - 1] = torch.from_numpy(tw.encode_fp12([hm.FP12_ONE]))[0]
+    f = f.reshape(2, k, 6, 2, 8).contiguous()
+    want = st.gt_product_plain(f)
+    legs = [tw.decode_fp12(f[r]) for r in range(2)]
+    prods = []
+    for row in legs:
+        acc = row[0]
+        for v in row[1:]:
+            acc = hm.fp12_mul(acc, v)
+        prods.append(acc)
+    assert tw.decode_fp12(want) == prods
+    out = torch.empty_like(want)
+    assert host["gt_product_lanes"](f.data_ptr(), out.data_ptr(), 2, k, g) == 0
+    assert torch.equal(out, want)
+    if g == _config(host, "gt_product_config", 2)[0]:
+        built = torch.empty_like(want)
+        host["gt_product"](f.data_ptr(), built.data_ptr(), 2, k)
+        assert torch.equal(built, want)
 
 
 def test_g1_to_affine_row_matches_plain_and_hostmath(host):
