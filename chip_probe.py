@@ -1,8 +1,8 @@
 #!/usr/bin/env python3
 """Quick first call on the GPU after a kernel change: build, check, stop.
 
-    python3 chip_probe.py [OUT_DIR] [--ladder | --redesign [--sweep all|msm|fexp|miller|gtp|pairing]
-                          | --ubench]
+    python3 chip_probe.py [OUT_DIR] [--ladder | --ubench
+                          | --redesign [--sweep all|msm|fexp|miller|gtp|pairing|affine]]
 
 Builds every CUDA source of the PyTorch port with `nvcc` and prints each
 source's `ptxas -v` report. Then the window ladder of `g1_mul` and
@@ -51,6 +51,14 @@ times it at the paths' rows (`miller` 128, 992 and 15,872 legs;
 prints its ptxas line and the blocks an SM holds
 (`fts_*_occupancy`), writes the kernel's SASS with the same counts, and
 stops; `--sweep pairing` runs both of these, `--sweep all` every sweep.
+With `--redesign --sweep affine` it checks `g1_to_affine` and
+`g2_to_affine` against their plain versions on edge rows (Z = 0 and Z =
+p, coordinates in [p, 2p), the generator), times each by direct
+launches at the paths' rows (G1 744 and 11,904, G2 64, 248 and 3,968)
+and at 65,536 (the host decode's scale) beside an empty launch on the
+same grid (`csrc/probe_empty.cu`), prints their ptxas lines, blocks an
+SM, SASS counts and every branch, exit and compare of their code, and
+stops.
 With `--ubench` it builds only `csrc/probe_fe2.cu` and prints its
 micro-benchmarks (cycles of a dependent Fp2 product at one call site and
 unrolled at 8 and 64 sites, of an Fp2 addition, and of shared-memory
@@ -69,6 +77,7 @@ import sys
 import time
 
 sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
+import numpy as np  # noqa: E402
 import torch  # noqa: E402
 
 from fabric_token_sdk_tpu_torch.crypto import hostmath as hm  # noqa: E402
@@ -82,7 +91,8 @@ ap.add_argument("--ladder", action="store_true", help="stop after the ladder che
 ap.add_argument("--redesign", action="store_true",
                 help="g1_msm, final_exp, miller, gt_product: checks, the S and G sweeps, SASS; "
                      "then stop")
-ap.add_argument("--sweep", choices=("all", "msm", "fexp", "miller", "gtp", "pairing"), default="all",
+ap.add_argument("--sweep", choices=("all", "msm", "fexp", "miller", "gtp", "pairing", "affine"),
+                default="all",
                 help="with --redesign: which kernel's variants to build and time")
 ap.add_argument("--ubench", action="store_true",
                 help="build csrc/probe_fe2.cu, print its cycle counts, stop")
@@ -93,16 +103,12 @@ smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=cs
                      capture_output=True, text=True, timeout=60)
 print("device", torch.cuda.get_device_name(0), "| nvidia-smi:", smi.stdout.strip(), flush=True)
 if args.ubench:
-    os.makedirs(_build.BUILD_DIR, exist_ok=True)
-    lib = os.path.join(_build.BUILD_DIR, "probe_fe2.so")
-    proc = subprocess.run([_build.find_nvcc(), *_build.NVCC_FLAGS, f"-I{_build.CSRC}", "-o", lib,
-                           os.path.join(_build.CSRC, "probe_fe2.cu")], capture_output=True, text=True)
-    print("build probe_fe2.cu: rc", proc.returncode, "|", " | ".join(
-        ln.strip() for ln in (proc.stdout + proc.stderr).splitlines()
-        if "Used" in ln or "stack" in ln or "error" in ln), flush=True)
-    if proc.returncode:
-        sys.exit(1)
-    fn = ctypes.CDLL(lib).fts_probe_fe2
+    try:
+        fn = _build.build_probe("probe_fe2.cu").fts_probe_fe2
+    finally:
+        print("build probe_fe2.cu |", " | ".join(
+            ln.strip() for ln in _build.BUILD_LOG.get("probe_fe2.cu", "").splitlines()
+            if "Used" in ln or "stack" in ln or "error" in ln), flush=True)
     fn.argtypes = [ctypes.c_int] + [ctypes.c_void_p] * 3 + [ctypes.c_int] * 3
     fn.restype = ctypes.c_int
     dev = torch.device("cuda")
@@ -150,10 +156,13 @@ def chk(name, got, want):
         bad.append(name)
 
 
-def ptxas_line(log):
+def ptxas_line(log, only=""):
+    """The stack/spill and register lines of each entry function (those
+    whose mangled name holds `only`)."""
     lines = log.splitlines()
     return " | ".join(" ".join(x.split(":", 1)[-1].strip() for x in lines[i + 2:i + 4])
-                      for i, ln in enumerate(lines) if "Compiling entry function" in ln)
+                      for i, ln in enumerate(lines) if "Compiling entry function" in ln
+                      and only in ln)
 
 
 def lifted(words, rows):
@@ -195,14 +204,33 @@ def code_summary(path, start_pat, pats):
             f"{what} {len(re.findall(pat, body))}" for what, pat in pats.items()), flush=True)
 
 
+def branch_lines(path, kernel):
+    """Print every branch, exit and predicate-setting compare of a
+    kernel's function in a SASS file: what decides each branch."""
+    if not os.path.exists(path):
+        return
+    text = open(path).read()
+    m = re.search(r"Function : \S*" + kernel + r"\S*", text)
+    if not m:
+        print("no function", kernel, "in", path)
+        return
+    body = text[m.start():]
+    nxt = re.search(r"Function : ", body[1:])
+    body = body[: nxt.start() + 1] if nxt else body
+    for ln in body.splitlines():
+        if re.search(r"\b(?:BRA|EXIT|ISETP|BSSY|BSYNC)\b", ln):
+            print(f"  {kernel}:", ln.strip()[:120], flush=True)
+
+
 SASS_PATS = {"LDG": r"\bLDG", "predicated LDG": r"@!?P\d\s+LDG", "LDS": r"\bLDS",
              "predicated LDS": r"@!?P\d\s+LDS", "BRA": r"\bBRA\b",
              "predicated BRA": r"@!?P\d\s+BRA", "SHFL": r"\bSHFL", "VOTE": r"\bVOTE"}
 
 
-def build_variants(source, defines_list):
+def build_variants(source, defines_list, only=""):
     """Build `source` once per set of -D flags, all nvcc processes at once;
-    returns {defines: (lib path, ptxas line)} for the builds that passed."""
+    returns {defines: (lib path, ptxas line of the entries named `only`)}
+    for the builds that passed."""
     procs = []
     for defines in defines_list:
         tag = "-".join(f"{k.split('_')[-1]}{v}" for k, v in defines)
@@ -215,12 +243,12 @@ def build_variants(source, defines_list):
     for defines, lib, t_start, proc in procs:
         log, _ = proc.communicate()
         print(f"sweep build {source} {dict(defines)}: rc {proc.returncode}, "
-              f"{time.perf_counter() - t_start:.1f} s; ptxas {ptxas_line(log)}", flush=True)
+              f"{time.perf_counter() - t_start:.1f} s; ptxas {ptxas_line(log, only)}", flush=True)
         if proc.returncode != 0:
             print(log[-4000:])
             bad.append(f"build {source} {dict(defines)}")
             continue
-        built[defines] = (lib, ptxas_line(log))
+        built[defines] = (lib, ptxas_line(log, only))
     return built
 
 
@@ -244,6 +272,77 @@ def occupancy(lib, name):
     rc = fn(ctypes.byref(blocks))
     return blocks.value if rc == 0 else f"error {rc}"
 
+
+def affine_rows(curve, n, seed):
+    """n Jacobian rows (G1 (n, 3, 8) or G2 (n, 3, 2, 8)) of random points
+    with random Z, and the edges: the generator with Z = 1 (row 0), Z = 0
+    (row 3) and Z = p (row 10, the redundant zero) inside the first warp,
+    every coordinate lifted into [p, 2p) in rows 20-24."""
+    r_ = random.Random(seed)
+    P, RM = hm.P, (1 << 256) % hm.P
+    g1_ = curve == "g1"
+    gen = hm.G1_GEN if g1_ else hm.G2_GEN
+    pts = [gen] + [(hm.g1_mul if g1_ else hm.g2_mul)(gen, r_.randrange(1, hm.R))
+                   for _ in range(n - 1)]
+    k = 3 if g1_ else 6
+    w = np.zeros((n, k, lb.NWORDS), dtype=np.int32)
+    for i, pt in enumerate(pts):
+        if i == 3:
+            continue
+        if g1_:
+            z = 1 if i == 0 else r_.randrange(1, P)
+            w[i] = lb.ints_to_words([v * RM % P for v in (pt[0] * z * z, pt[1] * z ** 3, z)])
+        else:
+            z = (1, 0) if i == 0 else (r_.randrange(P), r_.randrange(P))
+            zz = hm.fp2_mul(z, z)
+            w[i] = tw.encode_fp2([hm.fp2_mul(pt[0], zz), hm.fp2_mul(pt[1], hm.fp2_mul(zz, z)),
+                                  z]).reshape(k, lb.NWORDS)
+    w[10, 2 * k // 3:] = lb.ints_to_words([P] * (k // 3))
+    out = lifted(torch.from_numpy(w), range(20, min(25, n)))
+    return out.reshape((n, 3, lb.NWORDS) if g1_ else (n, 3, 2, lb.NWORDS)).contiguous()
+
+
+if args.redesign and args.sweep in ("all", "affine"):
+    # ------------------------------------------------------------ g1_to_affine and g2_to_affine
+    # the built kernels against their plain versions on edge rows (Z = 0 and
+    # p, Z in [p, 2p), the generator), timed by direct launches at the
+    # paths' rows and at 65,536 (the host decode's scale) beside an empty
+    # launch on the same grid (csrc/probe_empty.cu); ptxas, blocks an SM,
+    # and the kernels' SASS with their branch lines
+    stream = torch.cuda.current_stream().cuda_stream
+    path_rows = {"g1": (744, 11904), "g2": (64, 248, 3968)}  # 2/2 verify; PS, prove/verify
+    empty = _build.build_probe("probe_empty.cu").fts_empty_launch
+    empty.argtypes, empty.restype = [ctypes.c_int, ctypes.c_void_p], ctypes.c_int
+    affine_ms, floor_ms = {}, {}
+    for curve in ("g1", "g2"):
+        name = f"{curve}_to_affine"
+        kernel = _build.G1_TO_AFFINE if curve == "g1" else _build.G2_TO_AFFINE
+        rows_fn, plain_fn = getattr(st, f"{name}_rows"), getattr(st, f"{name}_plain")
+        built = _build._lib_path(f"{name}.cu")
+        print(f"ptxas {name}.cu:", ptxas_line(_build.BUILD_LOG.get(f"{name}.cu", "")),
+              "| blocks an SM", occupancy(built, name), flush=True)
+        edge = affine_rows(curve, 37, 71)
+        chk(f"{name} edges (37 rows)", rows_fn(edge.to(dev)), plain_fn(edge))
+        pool = affine_rows(curve, 61, 72).to(dev)
+        for n_rows in path_rows[curve] + (65536,):
+            x = pool[torch.arange(n_rows, device=dev) % pool.shape[0]].contiguous()
+            out = rows_fn(x)
+            if n_rows == path_rows[curve][-1]:
+                chk(f"{name} {n_rows} rows vs the plain version", out, plain_fn(x))
+            floor_ms[(curve, n_rows)] = event_ms(lambda: empty(n_rows, stream), 50)
+            affine_ms[(name, n_rows)] = event_ms(
+                lambda: kernel.launch(dev, x.data_ptr(), out.data_ptr(), n_rows), 20)
+            print(f"{name} {n_rows} rows: {affine_ms[(name, n_rows)]:.4f} ms "
+                  f"(empty launch {floor_ms[(curve, n_rows)]:.4f})", flush=True)
+        sass = write_sass(f"{name}.cu")
+        code_summary(sass, r"Function : \S+", {**SASS_PATS, "LDL/STL": r"\b(?:LDL|STL)",
+                                               "EXIT": r"\bEXIT", "predicated": r"@!?P\d"})
+        branch_lines(sass, f"{name}_kernel")
+    print("affine ms", {f"{t} {r}": round(v, 4) for (t, r), v in affine_ms.items()}, flush=True)
+    print("empty launch ms", {f"{c} {r}": round(v, 4) for (c, r), v in floor_ms.items()}, flush=True)
+    if args.sweep != "all":
+        print("failed:", bad)
+        sys.exit(1 if bad else 0)
 
 if args.redesign and args.sweep in ("all", "miller", "gtp", "pairing"):
     # ------------------------------------------------------------ miller and gt_product

@@ -56,10 +56,14 @@ with and without the mesh.
 The verify's own five `g1_msm` launches are held against the plain
 version and timed (`[msm]`); `g1_mul`, `g2_mul` and the select
 multiexp are timed on all-zero, all-0xF and random scalars at the
-1,024-tx prove's rows (`[secret-scalars]`); the kernels redesigned
-for the H100 print their lanes, ptxas line and share of bound
-(`[ladder]`, `[redesign]`; for `final_exp`, `miller` and `gt_product`
-also the shared memory a block, for the last two the blocks an SM).
+1,024-tx prove's rows, and `g1_to_affine` and `g2_to_affine` on Z = 1,
+Z = p - 1 and the verify's own Z at the 1,024-tx verify's rows, in
+eight rounds of shuffled turns (`[secret-scalars]`); the kernels
+redesigned for the H100 print their lanes, ptxas line and share of
+bound (`[ladder]`, `[redesign]`; for `final_exp`, `miller` and
+`gt_product` also the shared memory a block, for the last two and the
+to-affine kernels the blocks an SM; for the to-affine kernels the time
+of an empty launch on the same grid, `csrc/probe_empty.cu`).
 
 Phases print one line each. Before the last line come the GPU's name
 and power limit as `nvidia-smi` reports them and one JSON object with
@@ -169,6 +173,8 @@ PROVE_REPS = (5, 3)  # block, batch
 # a scalar whose 4-bit digits are all 15 below a zero top digit: every
 # window of the ladder adds the table's last entry
 LADDER_EDGE_K = 16 ** 63 - 1
+# rounds of the to-affine kernels' Z kinds in `[secret-scalars]`
+AFFINE_ROUNDS = 8
 LADDERS = ("g1_mul", "g2_mul")  # the window ladder's kernels (csrc/bn254_ladder.cuh)
 PS_SIGS = 64
 REPLACES = {
@@ -304,11 +310,13 @@ def main() -> int:
         + ", ".join(f"{src} {sec:.1f} s" for src, sec in sorted(
             _build.BUILD_SECONDS.items(), key=lambda x: -x[1])) + "); " + " | ".join(regs))
 
-    def ptxas_of(source: str) -> str:
-        """The stack/spill and register lines of a source's one entry point."""
+    def ptxas_of(source: str, only: str = "") -> str:
+        """The stack/spill and register lines of a source's entry points
+        (those whose mangled name holds `only`)."""
         lines = _build.BUILD_LOG.get(source, "").splitlines()
         return " | ".join(" ".join(x.split(":", 1)[-1].strip() for x in lines[i + 2:i + 4])
-                          for i, ln in enumerate(lines) if "Compiling entry function" in ln)
+                          for i, ln in enumerate(lines)
+                          if "Compiling entry function" in ln and only in ln)
 
     def built_config(source: str, n: int) -> tuple:
         """The compile-time lane counts (and sizes) of a source's kernel as
@@ -320,15 +328,6 @@ def main() -> int:
         if fn(*(ctypes.byref(v) for v in vals)) != 0:
             fail(f"{source}: its config entry failed")
         return tuple(v.value for v in vals)
-
-    def entry_ptxas(source: str, select: bool) -> str:
-        """The stack/spill and register lines of one of g1_msm.cu's two
-        entry points (the template argument SELECT: Lb1E is the select)."""
-        lines = _build.BUILD_LOG.get(source, "").splitlines()
-        tag = "ILb1E" if select else "ILb0E"
-        return " | ".join(" ".join(x.split(":", 1)[-1].strip() for x in lines[i + 2:i + 4])
-                          for i, ln in enumerate(lines)
-                          if "Compiling entry function" in ln and tag in ln)
 
     def timed(fn, reps: int) -> float:
         """Mean ms per call over `reps` calls, after a warm-up call."""
@@ -1139,10 +1138,54 @@ def main() -> int:
         ms = {kind: timed(lambda: fn(pts, k), 5) for kind, k in kinds.items()}
         secret[name] = {"rows": scal.shape[0], **ms,
                         "spread": (max(ms.values()) - min(ms.values())) / min(ms.values())}
+    # the to-affine kernels invert Z (on the prove path g2_to_affine's Z
+    # derives from secrets): each launched directly (its wrapper's host cost
+    # a call is of the kernel's own order) on Z words 1 and p - 1 (a G2 Z of
+    # (w, 0)) and on the verify's own Z at the 1,024-tx verify's rows, in
+    # AFFINE_ROUNDS rounds of one turn a kind in a shuffled order (seeded);
+    # a kind's time is the mean of its turns, `repeat` the largest gap
+    # between two turns of one kind, `slowest` the rounds each kind was
+    # the slowest in (a third each if the kinds do not differ)
+    order = random.Random(args.seed)
+    for name in ("g1_to_affine", "g2_to_affine"):
+        (pts,) = inputs_batch[name]
+        kinds = {}
+        for label, word in (("Z = 1", 1), ("Z = p-1", P - 1)):
+            z = pts.clone()
+            w = torch.from_numpy(lb.int_to_words(word)).to(dev)
+            if name == "g1_to_affine":
+                z[:, 2] = w
+            else:
+                z[:, 2, 0], z[:, 2, 1] = w, 0
+            kinds[label] = z
+        kinds["random"] = pts
+        kern = kernels_by_name[name]
+        out = torch.empty((pts.shape[0], 2) + tuple(pts.shape[2:]), dtype=torch.int32, device=dev)
+        turns = {label: [] for label in kinds}
+        slowest = {label: 0 for label in kinds}
+        for _ in range(AFFINE_ROUNDS):
+            labels = list(kinds)
+            order.shuffle(labels)
+            this_round = {}
+            for label in labels:
+                x = kinds[label]
+                this_round[label] = timed(
+                    lambda: kern.launch(dev, x.data_ptr(), out.data_ptr(), x.shape[0]), 100)
+                turns[label].append(this_round[label])
+            slowest[max(this_round, key=this_round.get)] += 1
+        ms = {label: sum(t) / len(t) for label, t in turns.items()}
+        secret[name] = {"rows": pts.shape[0], **ms,
+                        "spread": (max(ms.values()) - min(ms.values())) / min(ms.values()),
+                        "repeat": max((max(t) - min(t)) / min(t) for t in turns.values()),
+                        "slowest": slowest}
     say("secret-scalars", "; ".join(
-        f"{name} {v['rows']} rows: zero {v['zero']:.4f}, 0xF {v['0xF']:.4f}, random "
-        f"{v['random']:.4f} ms, spread {100 * v['spread']:.2f}%" for name, v in secret.items())
-        + f" [{card}]")
+        f"{name} {v['rows']} rows: " + ", ".join(
+            f"{k} {t:.4f}" for k, t in v.items() if k not in ("rows", "spread", "repeat", "slowest"))
+        + f" ms, spread {100 * v['spread']:.2f}%"
+        + (f" (two turns of one kind up to {100 * v['repeat']:.2f}% apart; slowest in "
+           + ", ".join(f"{k} {c}" for k, c in v["slowest"].items())
+           + f" of {AFFINE_ROUNDS} rounds)" if "repeat" in v else "")
+        for name, v in secret.items()) + f" [{card}]")
 
     # the kernels redesigned for the H100: lanes, ptxas, times beside the bound
     v_sel, v_fe = prove_stats["g1_msm_select"][0], range_stats["final_exp"]
@@ -1166,12 +1209,13 @@ def main() -> int:
     redesign = {
         "g1_msm": {
             "lanes": f"S {msm_s}",
-            "ptxas": entry_ptxas("g1_msm.cu", False), "rows": f"{small}/{big} x 3",
+            "ptxas": ptxas_of("g1_msm.cu", "ILb0E"),  # SELECT = false
+            "rows": f"{small}/{big} x 3",
             "ms": (stats["g1_msm"][small][0], stats["g1_msm"][big][0]),
             "bound": (stats["g1_msm"][small][3][0], stats["g1_msm"][big][3][0])},
         "g1_msm_select": {
             "lanes": f"S {msm_s}",
-            "ptxas": entry_ptxas("g1_msm.cu", True),
+            "ptxas": ptxas_of("g1_msm.cu", "ILb1E"),  # SELECT = true
             "rows": f"{v_sel['rows_block']}/{v_sel['rows_batch']} x {v_sel['nbases']}",
             "ms": (v_sel["ms_block"], v_sel["ms_batch"]),
             "bound": (v_sel["bound_block"][0], v_sel["bound_batch"][0])},
@@ -1202,6 +1246,23 @@ def main() -> int:
             "ms": (v_k2["ms_block"], v_k2["ms_batch"]),
             "bound": (v_k2["bound_block"][0], v_k2["bound_batch"][0])},
     }
+    # the to-affine kernels over csrc/bn254_inv.cuh, beside an empty launch
+    # on the same grid (csrc/probe_empty.cu; their bound lies below a
+    # launch's cost)
+    empty = _build.build_probe("probe_empty.cu").fts_empty_launch
+    empty.argtypes, empty.restype = [ctypes.c_int, ctypes.c_void_p], ctypes.c_int
+    stream = torch.cuda.current_stream().cuda_stream  # the one `timed` records on
+    for name in ("g1_to_affine", "g2_to_affine"):
+        v = range_stats[name]
+        floor = [timed(lambda: empty(rows, stream), 50)
+                 for rows in (v["rows_block"], v["rows_batch"])]
+        redesign[name] = {
+            "lanes": f"safegcd, a row a lane, {occupancy(f'{name}.cu')} blocks an SM, "
+                     f"empty launch {floor[0]:.4f}/{floor[1]:.4f} ms",
+            "ptxas": ptxas_of(f"{name}.cu"),
+            "rows": f"{v['rows_block']}/{v['rows_batch']}",
+            "ms": (v["ms_block"], v["ms_batch"]),
+            "bound": (v["bound_block"][0], v["bound_batch"][0])}
     for v in redesign.values():
         v["share"] = tuple(b / m for b, m in zip(v["bound"], v["ms"]))
     say("redesign", "; ".join(

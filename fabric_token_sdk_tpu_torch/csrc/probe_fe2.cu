@@ -1,6 +1,6 @@
 // probe_fe2: micro-benchmarks behind the GT kernels' design, run by
-// `chip_probe.py --ubench` (not a kernel of any path; _build.py does not
-// build it).
+// `chip_probe.py --ubench` (not a kernel of any path; left out of
+// _build.py's SOURCES, built by its build_probe).
 //
 // Each kernel runs one warp a block and reports, from lane 0, the clock
 // cycles of its timed loop in cyc[block]:

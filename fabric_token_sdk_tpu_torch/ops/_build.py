@@ -36,7 +36,7 @@ SOURCES = (
     "final_exp.cu", "pairing_fused.cu",
 )
 HEADERS = ("bn254_fp.cuh", "bn254_g1.cuh", "bn254_tower.cuh", "bn254_g2.cuh", "bn254_pairing.cuh",
-           "bn254_ladder.cuh", "bn254_gt_coop.cuh")
+           "bn254_ladder.cuh", "bn254_gt_coop.cuh", "bn254_inv.cuh")
 NVCC_FLAGS = (
     "-gencode=arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
@@ -106,6 +106,24 @@ def build_all() -> Dict[str, ctypes.CDLL]:
         for src in todo:
             _libs[src] = ctypes.CDLL(_lib_path(src))
         return dict(_libs)
+
+
+def build_probe(source: str) -> ctypes.CDLL:
+    """Compile a measurement source of `csrc/` that no path launches (a
+    `probe_*.cu`, left out of SOURCES) into its own library and load it;
+    its ptxas report goes to BUILD_LOG. Raises on a failed build."""
+    path = _lib_path(source)
+    if not os.path.exists(path):
+        os.makedirs(BUILD_DIR, exist_ok=True)
+        tmp = f"{path}.{os.getpid()}.tmp"
+        proc = subprocess.run([find_nvcc(), *NVCC_FLAGS, f"-I{CSRC}", "-o", tmp,
+                               os.path.join(CSRC, source)],
+                              stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+        BUILD_LOG[source] = proc.stdout
+        if proc.returncode != 0:
+            raise RuntimeError(f"CUDA probe build failed:\n{source}:\n{proc.stdout}")
+        os.replace(tmp, path)
+    return ctypes.CDLL(path)
 
 
 class Kernel:

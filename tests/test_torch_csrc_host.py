@@ -15,6 +15,7 @@ import re
 import shutil
 import subprocess
 
+import numpy as np
 import pytest
 import torch
 
@@ -39,6 +40,7 @@ ENTRY = {  # name: (source in csrc/, symbol, argtypes[, restype])
     "ladder_field": ("g1_mul", "host_ladder_field", [_P, _P, _P, _I, _I]),
     "g1_addsub": ("g1_addsub", "host_g1_addsub", [_P, _P, _P, _I, _I]),
     "g1_to_affine": ("g1_to_affine", "host_g1_to_affine", [_P, _P, _I]),
+    "fp_inv": ("g1_to_affine", "host_fp_inv", [_P, _P, _I]),
     "g2_mul": ("g2_mul", "host_g2_mul", [_P, _P, _P, _I]),
     "g2_mul_lanes": ("g2_mul", "host_g2_mul_lanes", [_P, _P, _P, _I, _I]),
     "g2_add": ("g2_add", "host_g2_add", [_P, _P, _P, _I]),
@@ -478,6 +480,83 @@ def test_g2_add_and_to_affine_rows_match_plain_and_hostmath(host):
     host["g2_to_affine"](out.data_ptr(), aff.data_ptr(), len(A))
     assert torch.equal(aff, st.g2_to_affine_plain(out))
     assert torch.equal(aff, torch.from_numpy(pr.encode_g2(want)))
+
+
+def _fp_inv_inputs(kind):
+    """Montgomery words in [0, 2p) for the inversion's test, by kind."""
+    P, RM = hm.P, (1 << 256) % hm.P
+    rng = random.Random(61)
+    if kind == "edges":
+        return [0, P, 1, RM, P - 1, 2 * P - 1, P + 1, P + RM]
+    if kind == "powers of two":
+        return [pow(2, k, P) for k in range(256)] + [P + pow(2, k, P) for k in range(0, 254, 7)]
+    if kind == "random":
+        return [rng.randrange(P) for _ in range(2000)]
+    return [rng.randrange(P, 2 * P) for _ in range(1000)]  # lifted into [p, 2p)
+
+
+@pytest.mark.parametrize("kind", ["edges", "powers of two", "random", "lifted"])
+def test_fp_inv_safegcd_matches_hostmath(host, kind):
+    """csrc/bn254_inv.cuh's inversion alone, on Montgomery words a = zR in
+    [0, 2p): canonical z^-1 R, that is a^-1 R^2 mod p, and 0 for 0 and p;
+    on 0, p, 1, R mod p, p - 1, 2p - 1 and their lifts, 2^k mod p, and
+    seeded random values in [0, p) and in [p, 2p)."""
+    P, R = hm.P, 1 << 256
+    xs = _fp_inv_inputs(kind)
+    a = torch.from_numpy(lb.ints_to_words(xs))
+    out = torch.empty_like(a)
+    host["fp_inv"](a.data_ptr(), out.data_ptr(), len(xs))
+    want = [0 if x % P == 0 else hm.fp_inv(x % P) * R * R % P for x in xs]
+    assert lb.batch_words_to_ints(out) == want
+
+
+@pytest.fixture(scope="module")
+def affine_rows():
+    """37 rows of each group, with random Z: the generator with Z = 1
+    (row 0) and with a random Z (row 1), Z = 0 (row 3), Z = p (row 10, the
+    redundant zero, X and Y random), every coordinate lifted into [p, 2p)
+    in rows 20-24, and infinity again in row 34; with the hostmath points
+    the rows encode (None where Z is 0 or p)."""
+    rng = random.Random(62)
+    P, RM, n = hm.P, (1 << 256) % hm.P, 37
+    g1 = [hm.G1_GEN, hm.G1_GEN] + _pts(rng, n - 2)
+    g2 = [hm.G2_GEN, hm.G2_GEN] + _g2pts(rng, n - 2)
+    g1[3] = g2[3] = g1[34] = g2[34] = None
+    w1 = np.zeros((n, 3, 8), dtype=np.int32)
+    w2 = np.zeros((n, 3, 2, 8), dtype=np.int32)
+    for i in range(n):
+        z1 = 1 if i == 0 else rng.randrange(1, P)
+        z2 = (1, 0) if i == 0 else (rng.randrange(P), rng.randrange(P))
+        if g1[i] is not None:
+            x, y = g1[i]
+            w1[i] = lb.ints_to_words([v * RM % P for v in (x * z1 * z1, y * z1 ** 3, z1)])
+        if g2[i] is not None:
+            zz = hm.fp2_mul(z2, z2)
+            w2[i] = tw.encode_fp2([hm.fp2_mul(g2[i][0], zz),
+                                   hm.fp2_mul(g2[i][1], hm.fp2_mul(zz, z2)), z2])
+    for w, k in ((w1, 3), (w2, 6)):  # row 10: Z = p (both Z words in G2), X, Y random
+        flat = w.reshape(n, k, 8)
+        flat[10] = lb.ints_to_words([rng.randrange(P) for _ in range(k)])
+        flat[10, k * 2 // 3:] = lb.ints_to_words([P] * (k // 3))
+    g1[10] = g2[10] = None
+    t1 = _lift(torch.from_numpy(w1), range(20, 25))
+    t2 = _lift(torch.from_numpy(w2), range(20, 25))
+    return {"g1": (t1.contiguous(), g1), "g2": (t2.contiguous(), g2)}
+
+
+@pytest.mark.parametrize("curve", ["g1", "g2"])
+def test_to_affine_rows_with_edges_match_plain_and_hostmath(host, affine_rows, curve):
+    """g1_to_affine and g2_to_affine rows over the safegcd inversion, on
+    37 rows with Z = 0 and Z = p among them, coordinates in [p, 2p) and
+    the generators: bit for bit the plain versions (a Fermat inversion)
+    and the encoded hostmath points, (0, 0) where Z is 0 or p."""
+    points, pts = affine_rows[curve]
+    plain = getattr(st, f"{curve}_to_affine_plain")(points)
+    encode = pr.encode_g1 if curve == "g1" else pr.encode_g2
+    assert torch.equal(plain, torch.from_numpy(encode(pts)))
+    out = torch.full_like(plain, -1)
+    host[f"{curve}_to_affine"](points.data_ptr(), out.data_ptr(), points.shape[0])
+    assert torch.equal(out, plain)
 
 
 def test_pairing_rows_match_plain_and_hostmath(host):
