@@ -2,7 +2,8 @@
 """Quick first call on the GPU after a kernel change: build, check, stop.
 
     python3 chip_probe.py [OUT_DIR] [--ladder | --ubench
-                          | --redesign [--sweep all|msm|fexp|miller|gtp|pairing|affine]]
+                          | --redesign [--sweep all|msm|fexp|miller|gtp|pairing|affine|add]
+                          [--parent DIR]]
 
 Builds every CUDA source of the PyTorch port with `nvcc` and prints each
 source's `ptxas -v` report. Then the window ladder of `g1_mul` and
@@ -51,6 +52,18 @@ times it at the paths' rows (`miller` 128, 992 and 15,872 legs;
 prints its ptxas line and the blocks an SM holds
 (`fts_*_occupancy`), writes the kernel's SASS with the same counts, and
 stops; `--sweep pairing` runs both of these, `--sweep all` every sweep.
+With `--redesign --sweep add [--parent DIR]` it builds only
+`g1_addsub.cu` and `g2_add.cu` (and DIR's, a checkout of another commit,
+to time beside them): both against their plain versions on edge rows
+(P + P, P - P, P + P with another Z, infinity as Z = 0 and Z = p on
+either side and both, coordinates in [p, 2p)), `g1_addsub` as a sub and
+as an add; each at TPI (G1) or G (G2) lanes a row and 32 or 128 threads
+a block (`-DFTS_G1_ADDSUB_TPI`, `-DFTS_G2_ADD_G`, `_THREADS`), held
+against the built kernel and timed by direct launches in two turns at
+the paths' rows (G1 64, 256, 384, 4,096, 6,144; G2 64, 248, 384, 3,968,
+6,144) beside an empty launch on the variant's grid; prints ptxas and
+blocks an SM, writes both kernels' SASS and their branch, exit and
+compare lines (`*.branches`), and stops.
 With `--redesign --sweep affine` it checks `g1_to_affine` and
 `g2_to_affine` against their plain versions on edge rows (Z = 0 and Z =
 p, coordinates in [p, 2p), the generator), times each by direct
@@ -67,6 +80,7 @@ loads at strides that meet in few or in all banks), from one warp to
 nothing of JAX.
 """
 import argparse
+import contextlib
 import ctypes
 import glob
 import os
@@ -91,9 +105,13 @@ ap.add_argument("--ladder", action="store_true", help="stop after the ladder che
 ap.add_argument("--redesign", action="store_true",
                 help="g1_msm, final_exp, miller, gt_product: checks, the S and G sweeps, SASS; "
                      "then stop")
-ap.add_argument("--sweep", choices=("all", "msm", "fexp", "miller", "gtp", "pairing", "affine"),
+ap.add_argument("--sweep", choices=("all", "msm", "fexp", "miller", "gtp", "pairing", "affine",
+                                    "add"),
                 default="all",
                 help="with --redesign: which kernel's variants to build and time")
+ap.add_argument("--parent", default=None,
+                help="with --sweep add: a checkout of the parent commit whose g1_addsub.cu and "
+                     "g2_add.cu are built and timed beside the variants")
 ap.add_argument("--ubench", action="store_true",
                 help="build csrc/probe_fe2.cu, print its cycle counts, stop")
 args = ap.parse_args()
@@ -133,9 +151,11 @@ if args.ubench:
         print(f"ubench 16 dependent shared loads, lane stride {stride} words: rc {rc}, "
               f"{cyc[0].item() / n:.1f} cycles", flush=True)
     sys.exit(0)
+ADD_ONLY = args.redesign and args.sweep == "add"  # builds only what its sweep times
 t0 = time.perf_counter()
 try:
-    _build.build_all()
+    if not ADD_ONLY:
+        _build.build_all()
 finally:
     for src, log in sorted(_build.BUILD_LOG.items()):
         print("=====", src)
@@ -205,8 +225,9 @@ def code_summary(path, start_pat, pats):
 
 
 def branch_lines(path, kernel):
-    """Print every branch, exit and predicate-setting compare of a
-    kernel's function in a SASS file: what decides each branch."""
+    """Print every branch, exit, predicated instruction and
+    predicate-setting compare or logic of a kernel's function in a SASS
+    file: what decides each branch and each predicated instruction."""
     if not os.path.exists(path):
         return
     text = open(path).read()
@@ -218,7 +239,7 @@ def branch_lines(path, kernel):
     nxt = re.search(r"Function : ", body[1:])
     body = body[: nxt.start() + 1] if nxt else body
     for ln in body.splitlines():
-        if re.search(r"\b(?:BRA|EXIT|ISETP|BSSY|BSYNC)\b", ln):
+        if re.search(r"\b(?:BRA|EXIT|ISETP|PLOP3|BSSY|BSYNC)\b|@!?P\d", ln):
             print(f"  {kernel}:", ln.strip()[:120], flush=True)
 
 
@@ -227,29 +248,40 @@ SASS_PATS = {"LDG": r"\bLDG", "predicated LDG": r"@!?P\d\s+LDG", "LDS": r"\bLDS"
              "predicated BRA": r"@!?P\d\s+BRA", "SHFL": r"\bSHFL", "VOTE": r"\bVOTE"}
 
 
+def build_jobs(jobs, only=""):
+    """Run nvcc for every job (key, source, csrc, defines, lib) at once;
+    returns {key: (lib path, ptxas line of the entries named `only`)} for
+    the builds that passed."""
+    os.makedirs(_build.BUILD_DIR, exist_ok=True)
+    procs = []
+    for key, source, csrc, defines, lib in jobs:
+        cmd = [_build.find_nvcc(), *_build.NVCC_FLAGS, f"-I{csrc}",
+               *(f"-D{k}={v}" for k, v in defines), "-o", lib, os.path.join(csrc, source)]
+        procs.append((key, source, defines, lib, time.perf_counter(), subprocess.Popen(
+            cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)))
+    built = {}
+    for key, source, defines, lib, t_start, proc in procs:
+        log, _ = proc.communicate()
+        print(f"sweep build {source} {key}: rc {proc.returncode}, "
+              f"{time.perf_counter() - t_start:.1f} s; ptxas {ptxas_line(log, only)}", flush=True)
+        if proc.returncode != 0:
+            print(log[-4000:])
+            bad.append(f"build {source} {key}")
+            continue
+        built[key] = (lib, ptxas_line(log, only))
+    return built
+
+
 def build_variants(source, defines_list, only=""):
     """Build `source` once per set of -D flags, all nvcc processes at once;
     returns {defines: (lib path, ptxas line of the entries named `only`)}
     for the builds that passed."""
-    procs = []
+    jobs = []
     for defines in defines_list:
         tag = "-".join(f"{k.split('_')[-1]}{v}" for k, v in defines)
         lib = os.path.join(_build.BUILD_DIR, f"sweep-{source[:-3]}-{tag}.so")
-        cmd = [_build.find_nvcc(), *_build.NVCC_FLAGS, f"-I{_build.CSRC}",
-               *(f"-D{k}={v}" for k, v in defines), "-o", lib, os.path.join(_build.CSRC, source)]
-        procs.append((defines, lib, time.perf_counter(), subprocess.Popen(
-            cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)))
-    built = {}
-    for defines, lib, t_start, proc in procs:
-        log, _ = proc.communicate()
-        print(f"sweep build {source} {dict(defines)}: rc {proc.returncode}, "
-              f"{time.perf_counter() - t_start:.1f} s; ptxas {ptxas_line(log, only)}", flush=True)
-        if proc.returncode != 0:
-            print(log[-4000:])
-            bad.append(f"build {source} {dict(defines)}")
-            continue
-        built[defines] = (lib, ptxas_line(log, only))
-    return built
+        jobs.append((defines, source, _build.CSRC, defines, lib))
+    return build_jobs(jobs, only)
 
 
 def event_ms(call, reps):
@@ -302,6 +334,168 @@ def affine_rows(curve, n, seed):
     return out.reshape((n, 3, lb.NWORDS) if g1_ else (n, 3, 2, lb.NWORDS)).contiguous()
 
 
+def add_operands(curve, n, seed):
+    """n pairs of Jacobian rows (a, b) of random points with random Z
+    (`affine_rows`: Z = 0 in row 3 and Z = p in row 10 of a, every
+    coordinate in [p, 2p) in rows 20-24), and the edges of an add: b = a
+    (P + P) in row 5, b = -a (P - P) in row 6, b = a with another Z (P + P
+    again) in row 7, b at infinity in rows 12 and 3 (both at infinity in
+    row 3), a and b lifted into [p, 2p) together in row 21."""
+    a, b = affine_rows(curve, n, seed), affine_rows(curve, n, seed + 1)
+    k = 3 if curve == "g1" else 6
+    fa, fb = a.view(n, k, lb.NWORDS), b.view(n, k, lb.NWORDS)
+    ints = [lb.words_to_int(fa[r, c].numpy()) for r in (6, 7) for c in range(k)]
+    lam = 0x1234567 + seed
+    for c in range(k):
+        v6, v7 = ints[c], ints[k + c]
+        if k // 3 <= c < 2 * k // 3:  # Y
+            v6 = (hm.P - v6 % hm.P) % hm.P
+        scale = lam ** (2 if c < k // 3 else 3 if c < 2 * k // 3 else 1)
+        fb[6, c] = torch.from_numpy(lb.int_to_words(v6))
+        fb[7, c] = torch.from_numpy(lb.int_to_words(v7 * scale % hm.P))
+    fb[5] = fa[5]
+    fb[21] = fa[21]
+    fb[3] = fb[12] = 0
+    return a.contiguous(), b.contiguous()
+
+
+def add_sweep():
+    """g1_addsub and g2_add: the built kernels against their plain versions
+    on edge rows, both layouts built at each lane count and threads a
+    block (and the parent's sources with --parent), each held against the
+    built kernel and timed by direct launches at the paths' rows beside an
+    empty launch on its grid; ptxas, blocks an SM, and the built kernels'
+    SASS with every branch, exit and compare."""
+    stream = torch.cuda.current_stream().cuda_stream
+    empty = _build.build_probe("probe_empty.cu").fts_empty_launch
+    empty.argtypes, empty.restype = [ctypes.c_int, ctypes.c_int, ctypes.c_void_p], ctypes.c_int
+    curves = {"g1": ("g1_addsub", "FTS_G1_ADDSUB", (64, 256, 384, 4096, 6144)),
+              "g2": ("g2_add", "FTS_G2_ADD", (64, 248, 384, 3968, 6144))}
+    jobs = []
+    for curve, (name, macro, _) in curves.items():
+        lanes_macro = "TPI" if curve == "g1" else "G"
+        source = f"{name}.cu"
+        jobs.append((("built",), source, _build.CSRC, (), _build._lib_path(source)))
+        if args.parent:
+            pdir = os.path.join(args.parent, "fabric_token_sdk_tpu_torch", "csrc")
+            jobs.append((("parent",), source, pdir, (),
+                         os.path.join(_build.BUILD_DIR, f"parent-{name}.so")))
+        for lanes, threads in ADD_VARIANTS[curve]:
+            defines = ((f"{macro}_{lanes_macro}", lanes), (f"{macro}_THREADS", threads))
+            jobs.append(((lanes, threads), source, _build.CSRC, defines, os.path.join(
+                _build.BUILD_DIR, f"sweep-{name}-{lanes}-{threads}.so")))
+    built = {}
+    for (source, key), v in build_jobs([((j[1], j[0]),) + j[1:] for j in jobs]).items():
+        built.setdefault(source, {})[key] = v
+
+    def config(lib, name):
+        vals = [ctypes.c_int() for _ in range(2 if name == "g1_addsub" else 3)]
+        fn = ctypes.CDLL(lib)[f"fts_{name}_config"]
+        fn.restype = ctypes.c_int
+        fn(*(ctypes.byref(v) for v in vals))
+        return tuple(v.value for v in vals)
+
+    summary = {}
+    for curve, (name, _, path_rows) in curves.items():
+        libs = built.get(f"{name}.cu", {})
+        if ("built",) not in libs:
+            continue
+        entries = {}
+        for key, (lib, p_) in libs.items():
+            fn = ctypes.CDLL(lib)[f"fts_{name}"]
+            fn.argtypes = [ctypes.c_void_p] * 3 + [ctypes.c_int] * (2 if curve == "g1" else 1) + [
+                ctypes.c_void_p]
+            fn.restype = ctypes.c_int
+            if key == ("parent",):
+                grid, blocks_sm = (1, 128 if curve == "g1" else 32), occupancy_or_none(lib, name)
+            else:
+                grid, blocks_sm = config(lib, name)[:2], occupancy(lib, name)
+            entries[key] = (fn, p_, grid, blocks_sm)
+            print(f"{name} {key}: ptxas {p_}; lanes, threads {grid}; blocks an SM {blocks_sm}",
+                  flush=True)
+        built_fn = entries[("built",)][0]
+
+        def launch(fn, a, b, out, n_rows, negate_b=1):
+            extra = (negate_b,) if curve == "g1" else ()  # g1: a - b (the verify's g1_sub)
+            rc = fn(a.data_ptr(), b.data_ptr(), out.data_ptr(), n_rows, *extra, stream)
+            if rc:
+                raise RuntimeError(f"{name}: CUDA error {rc}")
+
+        a, b = add_operands(curve, 61, 81)
+        plain = (lambda x, y: st.g1_addsub_plain(x, y, True)) if curve == "g1" else st.g2_add_plain
+        got = torch.empty_like(a).to(dev)
+        launch(built_fn, a.to(dev), b.to(dev), got, a.shape[0])
+        torch.cuda.synchronize()
+        chk(f"{name} built kernel, edge rows (61) vs the plain version", got, plain(a, b))
+        if curve == "g1":
+            launch(built_fn, a.to(dev), b.to(dev), got, a.shape[0], 0)
+            torch.cuda.synchronize()
+            chk("g1_addsub as an add, edge rows vs the plain version", got,
+                st.g1_addsub_plain(a, b, False))
+        a, b = a.to(dev), b.to(dev)
+        times = {key: {} for key in entries}
+        floor = {}
+        for n_rows in path_rows:
+            idx = torch.arange(n_rows, device=dev) % a.shape[0]
+            x, y = a[idx].contiguous(), b[idx].contiguous()
+            want = torch.empty_like(x)
+            launch(built_fn, x, y, want, n_rows)
+            outs = {}
+            for key, (fn, _, _, _) in entries.items():
+                outs[key] = torch.empty_like(x)
+                launch(fn, x, y, outs[key], n_rows)
+            torch.cuda.synchronize()
+            for key in entries:
+                if key != ("built",):
+                    chk(f"{name} {key} {n_rows} rows vs the built kernel", outs[key], want)
+            for turn, order in enumerate((list(entries), list(entries)[::-1])):
+                for key in order:
+                    fn, _, (lanes, threads), _ = entries[key]
+                    ms = event_ms(lambda: launch(fn, x, y, outs[key], n_rows), 200)
+                    times[key].setdefault(n_rows, []).append(ms)
+                    blocks = -(-n_rows * lanes // threads)
+                    if (blocks, threads) not in floor:
+                        floor[(blocks, threads)] = event_ms(lambda: empty(blocks, threads, stream), 200)
+        print(f"{name}: ms by direct launches (mean of two turns) at rows {path_rows}; the empty "
+              f"launch on the variant's grid beside it", flush=True)
+        for key, (_, p_, (lanes, threads), blocks_sm) in entries.items():
+            ms = {r: sum(t) / len(t) for r, t in times[key].items()}
+            empty_ms = [floor[(-(-r * lanes // threads), threads)] for r in path_rows]
+            summary[(name, key)] = sum(ms.values())
+            print(f"  {name} {key}: " + ", ".join(
+                f"{r} {ms[r]:.4f} (turns {'/'.join(f'{t:.4f}' for t in times[key][r])}, empty "
+                f"{e:.4f})" for r, e in zip(path_rows, empty_ms))
+                + f"; sum {sum(ms.values()):.4f}; ptxas {p_}; blocks an SM {blocks_sm}", flush=True)
+        ranked = sorted((v, key) for (n_, key), v in summary.items()
+                        if n_ == name and key not in (("built",), ("parent",)))
+        if ranked:
+            print(f"{name}: least sum {ranked[0][1]} {ranked[0][0]:.4f} ms; next "
+                  + ", ".join(f"{k} {v:.4f}" for v, k in ranked[1:4]), flush=True)
+        sass = write_sass(f"{name}.cu", _build._lib_path(f"{name}.cu"))
+        code_summary(sass, r"Function : \S+", {**SASS_PATS, "LDL/STL": r"\b(?:LDL|STL)",
+                                               "EXIT": r"\bEXIT", "predicated": r"@!?P\d"})
+        with open(os.path.join(out_dir, f"{name}.branches"), "w") as fh, \
+                contextlib.redirect_stdout(fh):
+            branch_lines(sass, f"{name}_kernel")
+
+
+def occupancy_or_none(lib, name):
+    try:
+        return occupancy(lib, name)
+    except AttributeError:  # the parent's sources export no occupancy entry
+        return None
+
+
+# (lanes a row, threads a block) of add_sweep: g1_addsub splits each
+# element over TPI lanes, g2_add the formula's base products over G
+ADD_VARIANTS = {"g1": tuple((tpi, t) for t in (32, 128) for tpi in (2, 4, 8)),
+                "g2": tuple((g, t) for t in (32, 128) for g in (4, 8, 16, 32))}
+if args.redesign and args.sweep in ("all", "add"):
+    add_sweep()
+    if args.sweep != "all":
+        print("failed:", bad)
+        sys.exit(1 if bad else 0)
+
 if args.redesign and args.sweep in ("all", "affine"):
     # ------------------------------------------------------------ g1_to_affine and g2_to_affine
     # the built kernels against their plain versions on edge rows (Z = 0 and
@@ -312,7 +506,7 @@ if args.redesign and args.sweep in ("all", "affine"):
     stream = torch.cuda.current_stream().cuda_stream
     path_rows = {"g1": (744, 11904), "g2": (64, 248, 3968)}  # 2/2 verify; PS, prove/verify
     empty = _build.build_probe("probe_empty.cu").fts_empty_launch
-    empty.argtypes, empty.restype = [ctypes.c_int, ctypes.c_void_p], ctypes.c_int
+    empty.argtypes, empty.restype = [ctypes.c_int, ctypes.c_int, ctypes.c_void_p], ctypes.c_int
     affine_ms, floor_ms = {}, {}
     for curve in ("g1", "g2"):
         name = f"{curve}_to_affine"
@@ -329,7 +523,7 @@ if args.redesign and args.sweep in ("all", "affine"):
             out = rows_fn(x)
             if n_rows == path_rows[curve][-1]:
                 chk(f"{name} {n_rows} rows vs the plain version", out, plain_fn(x))
-            floor_ms[(curve, n_rows)] = event_ms(lambda: empty(n_rows, stream), 50)
+            floor_ms[(curve, n_rows)] = event_ms(lambda: empty(-(-n_rows // 32), 32, stream), 50)
             affine_ms[(name, n_rows)] = event_ms(
                 lambda: kernel.launch(dev, x.data_ptr(), out.data_ptr(), n_rows), 20)
             print(f"{name} {n_rows} rows: {affine_ms[(name, n_rows)]:.4f} ms "

@@ -54,16 +54,22 @@ signatures with planted faults against the host `PublicKey.verify`,
 with and without the mesh.
 
 The verify's own five `g1_msm` launches are held against the plain
-version and timed (`[msm]`); `g1_mul`, `g2_mul` and the select
-multiexp are timed on all-zero, all-0xF and random scalars at the
-1,024-tx prove's rows, and `g1_to_affine` and `g2_to_affine` on Z = 1,
-Z = p - 1 and the verify's own Z at the 1,024-tx verify's rows, in
-eight rounds of shuffled turns (`[secret-scalars]`); the kernels
-redesigned for the H100 print their lanes, ptxas line and share of
-bound (`[ladder]`, `[redesign]`; for `final_exp`, `miller` and
-`gt_product` also the shared memory a block, for the last two and the
-to-affine kernels the blocks an SM; for the to-affine kernels the time
-of an empty launch on the same grid, `csrc/probe_empty.cu`).
+version and timed (`[msm]`); its four `g1_sub` launches and its `g2_add`
+(block and batch, `[adds]`), the PS verify's two `g2_add` launches
+(`[ps]`) and the prove's `g1_add` and `g2_add` (`[prove-kernels]`) are
+held bit for bit against their plain versions; `g1_mul`, `g2_mul` and
+the select multiexp are timed on all-zero, all-0xF and random scalars
+at the 1,024-tx prove's rows, `g1_to_affine` and `g2_to_affine` on Z =
+1, Z = p - 1 and the verify's own Z at the 1,024-tx verify's rows, and
+the prove's `g1_add` and `g2_add` on its own operands, on P + P, on P +
+(-P) and with Q at infinity, in eight rounds of shuffled turns
+(`[secret-scalars]`); the kernels redesigned for the H100 print their
+lanes, ptxas line and share of bound (`[ladder]`, `[redesign]`; for
+`final_exp`, `miller`, `gt_product` and `g2_add` also the shared memory
+a block, for the last three, the to-affine kernels and `g1_addsub` the
+blocks an SM; for the to-affine kernels and the adds the time of an
+empty launch on the same grid, `csrc/probe_empty.cu`, and for the adds
+their time by direct launches beside the wrapper's).
 
 Phases print one line each. Before the last line come the GPU's name
 and power limit as `nvidia-smi` reports them and one JSON object with
@@ -691,22 +697,26 @@ def main() -> int:
             return fn(*a, **kw)
         return wrapper
 
-    msm_rows_fn = st.g1_msm_rows
+    msm_rows_fn, sub_rows_fn = st.g1_msm_rows, st.g1_sub_rows
 
     def verify_counted(txs):
         """One verify with every count set to 0 just before it and read
         just after, recording each range kernel's inputs and those of every
-        g1_msm call (under "g1_msm", a list)."""
+        g1_msm and g1_sub call (under "g1_msm" and "g1_sub", lists)."""
         captured.clear()
-        msm_calls = []
+        msm_calls, sub_calls = [], []
 
         def msm_capturing(*a):
             msm_calls.append(tuple(x.clone() for x in a))
             return msm_rows_fn(*a)
 
+        def sub_capturing(*a):
+            sub_calls.append(tuple(x.clone() for x in a))
+            return sub_rows_fn(*a)
+
         for name in RANGE_KERNELS:
             setattr(st, f"{name}_rows", capturing(name))
-        st.g1_msm_rows = msm_capturing
+        st.g1_msm_rows, st.g1_sub_rows = msm_capturing, sub_capturing
         for k in _build.ALL_KERNELS:
             k.launches = 0
         try:
@@ -716,11 +726,11 @@ def main() -> int:
         finally:
             for name, fn in originals.items():
                 setattr(st, f"{name}_rows", fn)
-            st.g1_msm_rows = msm_rows_fn
+            st.g1_msm_rows, st.g1_sub_rows = msm_rows_fn, sub_rows_fn
         counts = {k.name: k.launches for k in _build.ALL_KERNELS}
         if counts != RANGE_LAUNCHES:
             fail(f"a {len(txs)}-tx 2-in/2-out verify launched {counts}, expected {RANGE_LAUNCHES}")
-        return got, wall, counts, {**captured, "g1_msm": msm_calls}
+        return got, wall, counts, {**captured, "g1_msm": msm_calls, "g1_sub": sub_calls}
 
     # every g1_mul and g2_mul call of the block verify and of the block and
     # batch proves, inputs and output, held against the plain versions in
@@ -864,6 +874,22 @@ def main() -> int:
             f"{sum(v[f'ms_{z}'] for v in verify_msm):.4f}" for z in ("block", "batch"))
         + f" ms, bound {sum(v['bound_batch'] for v in verify_msm):.4f} ms at batch [{card}]")
 
+    # the verify's own four g1_sub launches (WF, membership, equality) and
+    # its g2_add, block and batch: each bit for bit its plain version
+    checked = []
+    for tag, inputs in (("block", inputs_block), ("batch", inputs_batch)):
+        calls = [("g1_sub", a, st.g1_sub_rows, lambda x, y: st.g1_addsub_plain(x, y, True))
+                 for a in inputs["g1_sub"]]
+        calls.append(("g2_add", inputs["g2_add"], originals["g2_add"], st.g2_add_plain))
+        for name, (a, b), fn, plain in calls:
+            got, want = fn(a, b), plain(a, b)
+            if not torch.equal(got, want):
+                fail(f"{name} disagrees with its plain version on the {tag} verify's inputs "
+                     f"({a.shape[0]} rows; max |err| {max_abs_err(got, want)})")
+            checked.append(f"{name} {a.shape[0]}")
+    say("adds", f"the 2-in/2-out verify's g1_sub and g2_add launches, block and batch "
+        f"({', '.join(checked)} rows), each equal to its plain version bit for bit [{card}]")
+
     range_medians = medians("2-in/2-out", zip((rblock, rbatch), VERIFY_REPS["2-in/2-out"]))
     range_spans = wf_spans + ("batch.membership.verify", "batch.range.parse", "batch.range.device",
                               "batch.range.decode", "batch.range.challenge")
@@ -904,8 +930,9 @@ def main() -> int:
         """One prove with every count set to 0 just before it and read just
         after, recording the inputs of the select multiexps, the add and
         the GT product."""
-        captured = {name: [] for name in prove_capture}
-        saved = {name: getattr(st, fn) for name, fn in prove_capture.items()}
+        capture = {**prove_capture, "g2_add": "g2_add_rows"}  # g2_add: held below, no row
+        captured = {name: [] for name in capture}
+        saved = {name: getattr(st, fn) for name, fn in capture.items()}
 
         def recording(name):
             fn = saved[name]
@@ -915,7 +942,7 @@ def main() -> int:
                 return fn(*a, **kw)
             return wrapper
 
-        for name, fn in prove_capture.items():
+        for name, fn in capture.items():
             setattr(st, fn, recording(name))
         for k in _build.ALL_KERNELS:
             k.launches = 0
@@ -924,7 +951,7 @@ def main() -> int:
             proofs = prove(reqs)
             wall = time.perf_counter() - t
         finally:
-            for name, fn in prove_capture.items():
+            for name, fn in capture.items():
                 setattr(st, fn, saved[name])
         counts = {k.name: k.launches for k in _build.ALL_KERNELS}
         if counts != expect:
@@ -1046,6 +1073,13 @@ def main() -> int:
                 "bound_block": prove_bound(name, ab), "bound_batch": prove_bound(name, abig),
             })
         prove_stats[name] = calls
+    # the prove's g2_add (the membership commitments' sum), block and batch
+    for tag, pin in (("block", pin_block), ("batch", pin_batch)):
+        for a, b in pin["g2_add"]:
+            got, want = st.g2_add_rows(a, b), st.g2_add_plain(a, b)
+            if not torch.equal(got, want):
+                fail(f"g2_add disagrees with its plain version on the {tag} prove's inputs "
+                     f"({a.shape[0]} rows; max |err| {max_abs_err(got, want)})")
     # the select kernel on zero and on random scalars, beside the gather,
     # at the WF multiexp's rows (the ped3 table)
     zero_random = {}
@@ -1066,7 +1100,8 @@ def main() -> int:
             + f" {c['ms_block']:.3f}/{c['ms_batch']:.3f} ms (bound {c['bound_block'][0]:.4f}/"
             f"{c['bound_batch'][0]:.4f}, plain {c['plain_ms']:.0f})" for c in calls)
         for name, calls in prove_stats.items()) + "; each equals its plain version exactly on "
-        "the 64-tx prove's inputs; g1_msm_select ms on zero / random scalars, gather beside it: "
+        "the 64-tx prove's inputs, g2_add also on the 1,024-tx prove's; g1_msm_select ms on "
+        "zero / random scalars, gather beside it: "
         + ", ".join(f"{v['rows']} rows select {v['select_zero']:.3f} / {v['select_random']:.3f}, "
                     f"gather {v['gather_zero']:.3f} / {v['gather_random']:.3f}"
                     for v in zero_random.values()) + f" [{card}]")
@@ -1147,6 +1182,26 @@ def main() -> int:
     # between two turns of one kind, `slowest` the rounds each kind was
     # the slowest in (a third each if the kinds do not differ)
     order = random.Random(args.seed)
+
+    def shuffled_turns(name, rows, kinds, launch):
+        """`launch(kind)` timed (100 launches a turn) in AFFINE_ROUNDS rounds
+        of one turn a kind in a shuffled order, into secret[name]."""
+        turns = {label: [] for label in kinds}
+        slowest = {label: 0 for label in kinds}
+        for _ in range(AFFINE_ROUNDS):
+            labels = list(kinds)
+            order.shuffle(labels)
+            this_round = {}
+            for label in labels:
+                this_round[label] = timed(lambda: launch(label), 100)
+                turns[label].append(this_round[label])
+            slowest[max(this_round, key=this_round.get)] += 1
+        ms = {label: sum(t) / len(t) for label, t in turns.items()}
+        secret[name] = {"rows": rows, **ms,
+                        "spread": (max(ms.values()) - min(ms.values())) / min(ms.values()),
+                        "repeat": max((max(t) - min(t)) / min(t) for t in turns.values()),
+                        "slowest": slowest}
+
     for name in ("g1_to_affine", "g2_to_affine"):
         (pts,) = inputs_batch[name]
         kinds = {}
@@ -1161,23 +1216,29 @@ def main() -> int:
         kinds["random"] = pts
         kern = kernels_by_name[name]
         out = torch.empty((pts.shape[0], 2) + tuple(pts.shape[2:]), dtype=torch.int32, device=dev)
-        turns = {label: [] for label in kinds}
-        slowest = {label: 0 for label in kinds}
-        for _ in range(AFFINE_ROUNDS):
-            labels = list(kinds)
-            order.shuffle(labels)
-            this_round = {}
-            for label in labels:
-                x = kinds[label]
-                this_round[label] = timed(
-                    lambda: kern.launch(dev, x.data_ptr(), out.data_ptr(), x.shape[0]), 100)
-                turns[label].append(this_round[label])
-            slowest[max(this_round, key=this_round.get)] += 1
-        ms = {label: sum(t) / len(t) for label, t in turns.items()}
-        secret[name] = {"rows": pts.shape[0], **ms,
-                        "spread": (max(ms.values()) - min(ms.values())) / min(ms.values()),
-                        "repeat": max((max(t) - min(t)) / min(t) for t in turns.values()),
-                        "slowest": slowest}
+        shuffled_turns(name, pts.shape[0], kinds, lambda label: kern.launch(
+            dev, kinds[label].data_ptr(), out.data_ptr(), pts.shape[0]))
+    # the prove's adds (g1_add: S^r + P^sig_bf, g2_add: the membership
+    # commitments' sum) launched directly at the 1,024-tx prove's rows on
+    # its own operands, on P + P, on P + (-P) and with Q at infinity, in
+    # the same shuffled rounds
+    def negated(points):
+        """The same points with Y negated (G1 (n, 3, 8), G2 (n, 3, 2, 8))."""
+        out = points.clone()
+        ys = lb.batch_words_to_ints(points[:, 1])
+        out[:, 1] = torch.from_numpy(lb.ints_to_words([(P - y % P) % P for y in ys])).reshape(
+            points[:, 1].shape).to(dev)
+        return out
+
+    for name, kern, extra in (("g1_add", kernels_by_name["g1_addsub"], (0,)),
+                              ("g2_add", kernels_by_name["g2_add"], ())):
+        a, b = pin_batch[name][0]
+        kinds = {"random": (a, b), "P+P": (a, a), "P+(-P)": (a, negated(a)),
+                 "Q at infinity": (a, torch.zeros_like(b))}
+        out = torch.empty_like(a)
+        shuffled_turns(name, a.shape[0], kinds, lambda label: kern.launch(
+            dev, kinds[label][0].data_ptr(), kinds[label][1].data_ptr(), out.data_ptr(),
+            a.shape[0], *extra))
     say("secret-scalars", "; ".join(
         f"{name} {v['rows']} rows: " + ", ".join(
             f"{k} {t:.4f}" for k, t in v.items() if k not in ("rows", "spread", "repeat", "slowest"))
@@ -1250,11 +1311,12 @@ def main() -> int:
     # on the same grid (csrc/probe_empty.cu; their bound lies below a
     # launch's cost)
     empty = _build.build_probe("probe_empty.cu").fts_empty_launch
-    empty.argtypes, empty.restype = [ctypes.c_int, ctypes.c_void_p], ctypes.c_int
+    empty.argtypes = [ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
+    empty.restype = ctypes.c_int
     stream = torch.cuda.current_stream().cuda_stream  # the one `timed` records on
     for name in ("g1_to_affine", "g2_to_affine"):
         v = range_stats[name]
-        floor = [timed(lambda: empty(rows, stream), 50)
+        floor = [timed(lambda: empty(-(-rows // 32), 32, stream), 50)
                  for rows in (v["rows_block"], v["rows_batch"])]
         redesign[name] = {
             "lanes": f"safegcd, a row a lane, {occupancy(f'{name}.cu')} blocks an SM, "
@@ -1263,6 +1325,40 @@ def main() -> int:
             "rows": f"{v['rows_block']}/{v['rows_batch']}",
             "ms": (v["ms_block"], v["ms_batch"]),
             "bound": (v["bound_block"][0], v["bound_batch"][0])}
+    # the adds: g1_addsub (each element split over TPI lanes) and g2_add
+    # (the formula's base products split over G lanes), on the verify's
+    # own inputs (its first g1_sub, the WF's, and its g2_add) through the
+    # wrapper and by direct launches, beside an empty launch on the same
+    # grid
+    (add_tpi, add_threads), (add_g, add2_threads, add2_smem) = (
+        built_config("g1_addsub.cu", 2), built_config("g2_add.cu", 3))
+    for name, lanes, threads, what, wrapper, extra in (
+            ("g1_addsub", add_tpi, add_threads, f"TPI {add_tpi}, each element split",
+             st.g1_sub_rows, (1,)),
+            ("g2_add", add_g, add2_threads, f"G {add_g}, the base products split, {add2_smem} B "
+             "dynamic shared memory a block", st.g2_add_rows, ())):
+        kern, arg = kernels_by_name[name], "g1_sub" if name == "g1_addsub" else name
+        calls = [inputs_block[arg][0] if arg == "g1_sub" else inputs_block[arg],
+                 inputs_batch[arg][0] if arg == "g1_sub" else inputs_batch[arg]]
+        ms, direct, floor, bound = [], [], [], []
+        for a, b in calls:
+            out, n_rows = torch.empty_like(a), a.shape[0]
+            ms.append(timed(lambda: wrapper(a, b), 200))
+            direct.append(timed(lambda: kern.launch(
+                dev, a.data_ptr(), b.data_ptr(), out.data_ptr(), n_rows, *extra), 200))
+            blocks = -(-n_rows * lanes // threads)
+            floor.append(timed(lambda: empty(blocks, threads, stream), 200))
+            fin = sum(1 for x, y in zip(finite(a), finite(b)) if x and y)
+            bound.append(bound_ms(fin * (FP_MULS_ADD if name == "g1_addsub" else G2_MULS_ADD),
+                                  n_rows * 3 * (POINT_BYTES if name == "g1_addsub" else G2_BYTES))[0])
+        redesign[name] = {
+            "lanes": f"{what}, {threads} threads a block, {occupancy(f'{name}.cu')} blocks an SM, "
+                     f"direct launches {direct[0]:.4f}/{direct[1]:.4f} ms, empty launch "
+                     f"{floor[0]:.4f}/{floor[1]:.4f} ms",
+            "ptxas": ptxas_of(f"{name}.cu"),
+            "rows": f"{calls[0][0].shape[0]}/{calls[1][0].shape[0]}",
+            "ms": tuple(ms), "bound": tuple(bound), "direct_ms": tuple(direct),
+            "empty_ms": tuple(floor)}
     for v in redesign.values():
         v["share"] = tuple(b / m for b, m in zip(v["bound"], v["ms"]))
     say("redesign", "; ".join(
@@ -1306,21 +1402,37 @@ def main() -> int:
     if [i for i, ok in enumerate(ps_host) if not ok] != ps_bad:
         fail("the host PS verifier does not reject exactly the planted rows")
     ps_verifier = BatchedPSVerifier(rp.sign_pk, rp.Q, device="cuda")
+    g2_add_fn, ps_adds = st.g2_add_rows, []
+
+    def g2_add_capturing(*a):
+        ps_adds.append(tuple(x.clone() for x in a))
+        return g2_add_fn(*a)
+
     for k in _build.ALL_KERNELS:
         k.launches = 0
-    t = time.perf_counter()
-    ps_got = ps_verifier.verify(ps_msgs, ps_sigs)
-    t_ps = time.perf_counter() - t
+    st.g2_add_rows = g2_add_capturing
+    try:
+        t = time.perf_counter()
+        ps_got = ps_verifier.verify(ps_msgs, ps_sigs)
+        t_ps = time.perf_counter() - t
+    finally:
+        st.g2_add_rows = g2_add_fn
     launches_ps = {k.name: k.launches for k in _build.ALL_KERNELS}
     if launches_ps != PS_LAUNCHES:
         fail(f"a PS verify launched {launches_ps}, expected {PS_LAUNCHES}")
     if ps_got.tolist() != ps_host:
         fail(f"BatchedPSVerifier verdicts differ from the host's: {ps_got.tolist()}")
+    for a, b in ps_adds:  # the public key's tree sum and + pk[0]
+        got, want = st.g2_add_rows(a, b), st.g2_add_plain(a, b)
+        if not torch.equal(got, want):
+            fail(f"g2_add disagrees with its plain version on the PS verify's inputs "
+                 f"({a.shape[0]} rows; max |err| {max_abs_err(got, want)})")
     ps_medians = medians("PS", [(ps_sigs, PROVE_REPS[0])],
                          run=lambda sigs: ps_verifier.verify(ps_msgs, sigs), unit="sig")
     say("ps", f"{PS_SIGS} signatures (the signed set, randomised; planted rows {ps_bad}: a "
         f"wrong message, R and S swapped, another value's signature, a wrong message count, "
-        f"no signature): verdicts equal the host's; first verify {t_ps * 1e3:.1f} ms; launches "
+        f"no signature): verdicts equal the host's; its {len(ps_adds)} g2_add launches equal the "
+        f"plain version bit for bit; first verify {t_ps * 1e3:.1f} ms; launches "
         f"{ {k: v for k, v in launches_ps.items() if v} } [{card}]")
 
     # ---------------------------------------------------------------- mesh
@@ -1595,8 +1707,12 @@ def main() -> int:
             kernels[-1].update({x: ladder[k.name][x] for x in ("tpi", "ptxas", "share_batch")})
         if k.name in redesign:
             v = redesign[k.name]
-            kernels[-1].update({"lanes": v["lanes"], "ptxas": v["ptxas"], "share_batch": v["share"][1],
-                                "verify_launches": verify_msm})
+            kernels[-1].update({"lanes": v["lanes"], "ptxas": v["ptxas"], "share_batch": v["share"][1]})
+            if k.name == "g1_msm":
+                kernels[-1]["verify_launches"] = verify_msm
+            if "direct_ms" in v:
+                kernels[-1].update({"redesign_rows": v["rows"], "redesign_ms": v["ms"],
+                                    "direct_ms": v["direct_ms"], "empty_ms": v["empty_ms"]})
     for name in RANGE_KERNELS:
         v, k = range_stats[name], kernels_by_name[name]
         kernels.append({
@@ -1615,6 +1731,8 @@ def main() -> int:
         if name in redesign:
             v = redesign[name]
             kernels[-1].update({"lanes": v["lanes"], "ptxas": v["ptxas"], "share_batch": v["share"][1]})
+            if "direct_ms" in v:
+                kernels[-1].update({"direct_ms": v["direct_ms"], "empty_ms": v["empty_ms"]})
     # the prove path's own rows: the select multiexp (its WF call, 3 bases,
     # stands for it; every call is listed), the add, the K = 2 product
     sources = {"g1_msm_select": "g1_msm.cu", "g1_add": "g1_addsub.cu",
@@ -1640,7 +1758,10 @@ def main() -> int:
             row["launches_1in1out_prove"] = launches_pwf[name]
             row["zero_vs_random_scalars_ms"] = zero_random
             row["secret_scalars_ms"] = secret
-        if name in redesign:
+        if kernel_of[name] in ("g1_addsub",):  # the add: the kernel's redesign figures
+            v = redesign[kernel_of[name]]
+            row.update({"lanes": v["lanes"], "ptxas": v["ptxas"]})
+        elif name in redesign:
             v = redesign[name]
             row.update({"lanes": v["lanes"], "ptxas": v["ptxas"], "share_batch": v["share"][1]})
         kernels.append(row)

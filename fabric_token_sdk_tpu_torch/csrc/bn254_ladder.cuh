@@ -16,8 +16,8 @@
 // enters the mask, made opaque to the compiler), so no address, branch
 // or predicate depends on a digit: the prove path feeds these kernels
 // secret scalars. Digit 0 adds the all-zero infinity through add's own
-// selects. The formulas and selects are those of bn254_g1.cuh and
-// bn254_g2.cuh (dbl-2009-l; add-2007-bl with P == Q, P == -Q and
+// selects. The formulas and selects are the reference's (ops/curve.py,
+// curve2.py: dbl-2009-l; add-2007-bl with P == Q, P == -Q and
 // infinity by selects, the doubling always computed), so every result
 // is the same group element as the reference's bit ladder, with another
 // Jacobian Z. The plain versions (ops/curve.py:window_mul) run this very
@@ -461,7 +461,8 @@ __device__ __forceinline__ Pt<TPI, E> pt_zero() {
   return r;
 }
 
-// G1 (E = 3): the formulas of bn254_g1.cuh over the cooperative field.
+// G1 (E = 3): the reference's formulas over the cooperative field (also
+// g1_addsub.cu's row).
 template <int TPI>
 struct CurveG1 {
   static constexpr int E = 3;
@@ -488,7 +489,7 @@ struct CurveG1 {
     return r;
   }
 
-  // add-2007-bl with bn254_g1.cuh's selects in its order
+  // add-2007-bl with the reference's selects in its order
   static __device__ __forceinline__ P add(const Group<TPI>& g, const P& p, const P& q) {
     FeT<TPI> z1z1 = fe_mul(g, p.e[2], p.e[2]);
     FeT<TPI> z2z2 = fe_mul(g, q.e[2], q.e[2]);
@@ -510,10 +511,11 @@ struct CurveG1 {
     FeT<TPI> zs = fe_add(g, p.e[2], q.e[2]);
     out.e[2] = fe_mul(g, fe_sub(g, fe_mul(g, zs, zs), fe_add(g, z1z1, z2z2)), h);
 
-    uint32_t same_x = fe_is_zero(g, h);
-    uint32_t same_y = fe_is_zero(g, rr);
-    uint32_t inf1 = fe_is_zero(g, p.e[2]);
-    uint32_t inf2 = fe_is_zero(g, q.e[2]);
+    // opaque: masks, never predicates the compiler could make of them
+    uint32_t same_x = opaque(fe_is_zero(g, h));
+    uint32_t same_y = opaque(fe_is_zero(g, rr));
+    uint32_t inf1 = opaque(fe_is_zero(g, p.e[2]));
+    uint32_t inf2 = opaque(fe_is_zero(g, q.e[2]));
     uint32_t finite = ~inf1 & ~inf2;
     out = pt_select(same_x & same_y & finite, dbl(g, p), out);
     out = pt_select(same_x & ~same_y & finite, pt_zero<TPI, 3>(), out);
@@ -523,7 +525,7 @@ struct CurveG1 {
   }
 };
 
-// G2 (E = 6): the formulas of bn254_g2.cuh over the cooperative Fp2,
+// G2 (E = 6): the reference's formulas over the cooperative Fp2,
 // inlined (a lane holds 12 words of a point at TPI = 4).
 template <int TPI>
 struct CurveG2 {
@@ -557,7 +559,7 @@ struct CurveG2 {
     return make(x3, y3, z3);
   }
 
-  // add-2007-bl with bn254_g2.cuh's selects in its order
+  // add-2007-bl with the reference's selects in its order
   static __device__ __forceinline__ P add(const Group<TPI>& g, const P& p, const P& q) {
     Fe2<TPI> x1 = get(p, 0), y1 = get(p, 1), z1 = get(p, 2);
     Fe2<TPI> x2 = get(q, 0), y2 = get(q, 1), z2 = get(q, 2);
@@ -579,10 +581,10 @@ struct CurveG2 {
         g, fe2_sub(g, fe2_sqr(g, fe2_add(g, z1, z2)), fe2_add(g, z1z1, z2z2)), h);
     P out = make(x3, y3, z3);
 
-    uint32_t same_x = fe2_is_zero(g, h);
-    uint32_t same_y = fe2_is_zero(g, rr);
-    uint32_t inf1 = fe2_is_zero(g, z1);
-    uint32_t inf2 = fe2_is_zero(g, z2);
+    uint32_t same_x = opaque(fe2_is_zero(g, h));
+    uint32_t same_y = opaque(fe2_is_zero(g, rr));
+    uint32_t inf1 = opaque(fe2_is_zero(g, z1));
+    uint32_t inf2 = opaque(fe2_is_zero(g, z2));
     uint32_t finite = ~inf1 & ~inf2;
     out = pt_select(same_x & same_y & finite, dbl(g, p), out);
     out = pt_select(same_x & ~same_y & finite, pt_zero<TPI, 6>(), out);

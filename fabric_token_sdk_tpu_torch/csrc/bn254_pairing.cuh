@@ -36,9 +36,14 @@
 // output.
 #pragma once
 
-#include "bn254_g2.cuh"
+#include "bn254_tower.cuh"
 
 namespace bn254 {
+
+// a G2 point in Jacobian coordinates over Fp2
+struct G2 {
+  Fp2 x, y, z;
+};
 
 constexpr int FP12_WORDS = 12 * NW;
 

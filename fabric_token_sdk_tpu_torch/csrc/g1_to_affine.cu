@@ -20,7 +20,6 @@
 // chain) where the old one was 508 dependent CIOS products. A Fermat
 // inversion over a 5-bit window and the batch trick over a warp's lanes
 // were slower at every row count measured (PERF.md, B7).
-#include "bn254_g1.cuh"
 #include "bn254_inv.cuh"
 
 using namespace bn254;
@@ -29,7 +28,7 @@ namespace {
 
 __device__ __forceinline__ void g1_to_affine_row(const uint32_t* __restrict__ points,
                                                  uint32_t* __restrict__ out, int row) {
-  const uint32_t* src = points + (size_t)row * G1_WORDS;
+  const uint32_t* src = points + (size_t)row * 3 * NW;
   const Fp zi = inv::fp_inv_safegcd(fp_load(src + 2 * NW));
   const Fp zi2 = fp_sqr(zi);
   uint32_t* dst = out + (size_t)row * 2 * NW;

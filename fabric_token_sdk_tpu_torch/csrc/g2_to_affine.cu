@@ -19,8 +19,8 @@
 // is below a launch, so the time is one row's chain, which the
 // Bernstein-Yang inversion keeps short. Everything is inlined: no call,
 // no stack.
-#include "bn254_g2.cuh"
 #include "bn254_inv.cuh"
+#include "bn254_tower.cuh"
 
 using namespace bn254;
 
@@ -28,7 +28,7 @@ namespace {
 
 __device__ __forceinline__ void g2_to_affine_row(const uint32_t* __restrict__ points,
                                                  uint32_t* __restrict__ out, int row) {
-  const uint32_t* src = points + (size_t)row * G2_WORDS;
+  const uint32_t* src = points + (size_t)row * 3 * 2 * NW;
   const Fp2 z = fp2_load(src + 4 * NW);
   const Fp ni = inv::fp_inv_safegcd(fp_add(fp_sqr(z.c0), fp_sqr(z.c1)));
   const Fp2 zi{fp_mul(z.c0, ni), fp_neg(fp_mul(z.c1, ni))};

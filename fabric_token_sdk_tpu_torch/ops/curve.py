@@ -5,9 +5,9 @@ an int32 tensor `(..., 3, 8)`: Jacobian (X, Y, Z) in Montgomery form,
 Z == 0 encoding infinity.
 
 The group ops here are the plain torch versions that the CUDA kernels
-(`csrc/bn254_g1.cuh` and the `csrc/g1_*.cu` kernels, launched from
-`ops/stages.py`) are held against. They use the reference's formulas
-(dbl-2009-l, add-2007-bl) and its edge-case selects, so a result's
+(the `csrc/g1_*.cu` kernels, launched from `ops/stages.py`) are held
+against. They use the reference's formulas (dbl-2009-l, add-2007-bl)
+and its edge-case selects, so a result's
 canonical Jacobian coordinates equal the reference's and the kernels';
 the variable-base `scalar_mul` takes the kernels' 4-bit window ladder
 (`window_mul`), and the fixed-base `msm` the g1_msm kernels' split

@@ -5,7 +5,7 @@ is an int32 tensor `(..., 3, 2, 8)`: Jacobian (X, Y, Z) over Fp2 in
 Montgomery form, Z == 0 encoding infinity.
 
 The group ops here are the plain torch versions that the CUDA kernels
-(`csrc/bn254_g2.cuh`, `csrc/g2_*.cu`, launched from `ops/stages.py`)
+(`csrc/g2_*.cu`, launched from `ops/stages.py`)
 are held against. They use the reference's formulas (dbl-2009-l,
 add-2007-bl over Fp2) and its edge-case selects in its order, so a
 result's canonical Jacobian coordinates equal the reference's and the

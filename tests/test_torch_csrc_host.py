@@ -39,11 +39,15 @@ ENTRY = {  # name: (source in csrc/, symbol, argtypes[, restype])
     "g1_mul_lanes": ("g1_mul", "host_g1_mul_lanes", [_P, _P, _P, _I, _I]),
     "ladder_field": ("g1_mul", "host_ladder_field", [_P, _P, _P, _I, _I]),
     "g1_addsub": ("g1_addsub", "host_g1_addsub", [_P, _P, _P, _I, _I]),
+    "g1_addsub_lanes": ("g1_addsub", "host_g1_addsub_lanes", [_P, _P, _P, _I, _I, _I], _I),
+    "g1_addsub_config": ("g1_addsub", "fts_g1_addsub_config", [_P, _P], _I),
     "g1_to_affine": ("g1_to_affine", "host_g1_to_affine", [_P, _P, _I]),
     "fp_inv": ("g1_to_affine", "host_fp_inv", [_P, _P, _I]),
     "g2_mul": ("g2_mul", "host_g2_mul", [_P, _P, _P, _I]),
     "g2_mul_lanes": ("g2_mul", "host_g2_mul_lanes", [_P, _P, _P, _I, _I]),
     "g2_add": ("g2_add", "host_g2_add", [_P, _P, _P, _I]),
+    "g2_add_lanes": ("g2_add", "host_g2_add_lanes", [_P, _P, _P, _I, _I], _I),
+    "g2_add_config": ("g2_add", "fts_g2_add_config", [_P, _P, _P], _I),
     "g2_to_affine": ("g2_to_affine", "host_g2_to_affine", [_P, _P, _I]),
     "miller": ("miller", "host_miller", [_P, _P, _P, _I]),
     "miller_lanes": ("miller", "host_miller_lanes", [_P, _P, _P, _I, _I], _I),
@@ -557,6 +561,102 @@ def test_to_affine_rows_with_edges_match_plain_and_hostmath(host, affine_rows, c
     out = torch.full_like(plain, -1)
     host[f"{curve}_to_affine"](points.data_ptr(), out.data_ptr(), points.shape[0])
     assert torch.equal(out, plain)
+
+
+# the lanes a row that host_g1_addsub_lanes (TPI: each element split over
+# the lanes) and host_g2_add_lanes (G: the formula's base products split
+# over the lanes) build
+ADD_LANES = {"g1": [1, 2, 4, 8], "g2": [1, 2, 4, 8, 16, 32]}
+
+
+@pytest.fixture(scope="module")
+def add_rows(affine_rows):
+    """Operand pairs for the add kernels and their plain outputs: a the
+    to-affine rows (random Z, the generator with Z = 1, Z = 0 in rows 3
+    and 34, Z = p in row 10, every coordinate in [p, 2p) in rows 20-24),
+    b the same rows turned by one (so b is at infinity in rows 4, 11 (Z =
+    p) and 35 against a finite a), with the edges planted: b = a (P + P)
+    in rows 5 and 21 (both lifted), b = a with another Z (P + P) in row
+    6, b = -a (P - P) in row 7, both at infinity (Z = 0) in row 34; with
+    the hostmath points the rows encode."""
+    rows = {}
+    for curve, k in (("g1", 3), ("g2", 6)):
+        a, pts = affine_rows[curve]
+        n = a.shape[0]
+        b = torch.roll(a, 1, dims=0).clone()
+        B = [pts[i - 1] for i in range(n)]
+        fa, fb = a.view(n, k, 8), b.view(n, k, 8)
+        lam = 0x2468ACE1
+        for c in range(k):
+            x6 = lb.words_to_int(fa[6, c].numpy())
+            x7 = lb.words_to_int(fa[7, c].numpy())
+            power = 2 if c < k // 3 else 3 if c < 2 * k // 3 else 1  # X, Y, Z
+            fb[6, c] = torch.from_numpy(lb.int_to_words(x6 * lam ** power % hm.P))
+            if k // 3 <= c < 2 * k // 3:
+                x7 = (hm.P - x7 % hm.P) % hm.P
+            fb[7, c] = torch.from_numpy(lb.int_to_words(x7))
+        for r in (5, 21, 34):
+            fb[r] = fa[r]
+        neg = hm.g1_neg if curve == "g1" else hm.g2_neg
+        B[5], B[6], B[7], B[21], B[34] = pts[5], pts[6], neg(pts[7]), pts[21], None
+        b = b.contiguous()
+        if curve == "g1":
+            for negate_b in (False, True):
+                want = st.g1_addsub_plain(a, b, negate_b)
+                host_pts = [hm.g1_add(x, neg(y) if negate_b and y is not None else y)
+                            for x, y in zip(pts, B)]
+                assert cv.decode_points(want) == host_pts
+                rows[(curve, negate_b)] = (a, b, want)
+        else:
+            want = st.g2_add_plain(a, b)
+            assert cv2.decode_points(want) == [hm.g2_add(x, y) for x, y in zip(pts, B)]
+            rows[(curve, False)] = (a, b, want)
+    return rows
+
+
+@pytest.mark.parametrize("curve,negate_b,g", [("g1", nb, t) for nb in (False, True)
+                                              for t in ADD_LANES["g1"]]
+                         + [("g2", False, g) for g in ADD_LANES["g2"]])
+def test_add_rows_by_lane_groups_match_plain_and_hostmath(host, add_rows, curve, negate_b, g):
+    """g1_addsub (as an add and as a sub) and g2_add by an emulated group of
+    g lanes (host_check.h: the shuffles and barriers between the lanes
+    as on the card) on 37 rows with P + P (the same words, and another
+    Z), P - P, infinity (Z = 0 and Z = p) on either side and on both, and
+    coordinates in [p, 2p): bit for bit the plain version, itself equal
+    to hostmath's points; at the kernel's own lane count also its host
+    entry."""
+    a, b, want = add_rows[(curve, negate_b)]
+    n, out = a.shape[0], torch.full_like(a, -1)
+    if curve == "g1":
+        rc = host["g1_addsub_lanes"](a.data_ptr(), b.data_ptr(), out.data_ptr(), n,
+                                     int(negate_b), g)
+    else:
+        rc = host["g2_add_lanes"](a.data_ptr(), b.data_ptr(), out.data_ptr(), n, g)
+    assert rc == 0
+    assert torch.equal(out, want)
+    name = "g1_addsub" if curve == "g1" else "g2_add"
+    if g == _config(host, f"{name}_config", 2 if curve == "g1" else 3)[0]:
+        built = torch.full_like(a, -1)
+        extra = (int(negate_b),) if curve == "g1" else ()
+        host[name](a.data_ptr(), b.data_ptr(), built.data_ptr(), n, *extra)
+        assert torch.equal(built, want)
+
+
+@pytest.mark.parametrize("curve", ["g1", "g2"])
+def test_add_build_config_is_a_tested_one(host, curve):
+    """The kernels' lanes a row (FTS_G1_ADDSUB_TPI, FTS_G2_ADD_G, as the
+    libraries report them) are lane counts of the tests above, a block is
+    whole warps of whole groups, and g2_add's shared memory a block is a
+    row's cells (44 Fp2 values as c0, c1, c0 + c1, and the 3 base products
+    of each of a phase's 8 products) for each row of the block."""
+    if curve == "g1":
+        tpi, threads = _config(host, "g1_addsub_config", 2)
+        assert tpi in ADD_LANES["g1"] and threads % 32 == 0
+        return
+    g, threads, smem = _config(host, "g2_add_config", 3)
+    assert g in ADD_LANES["g2"] and threads % 32 == 0
+    rows = threads // g
+    assert smem == (44 * 3 + 8 * 3) * (8 * rows + 1) * 4
 
 
 def test_pairing_rows_match_plain_and_hostmath(host):
