@@ -1,8 +1,8 @@
 #!/usr/bin/env python3
 """Quick first call on the GPU after a kernel change: build, check, stop.
 
-    python3 chip_probe.py [OUT_DIR] [--ladder | --ubench
-                          | --redesign [--sweep all|msm|fexp|miller|gtp|pairing|affine|add]
+    python3 chip_probe.py [OUT_DIR] [--ladder | --ubench | --stage2 [--root DIR]
+                          | --redesign [--sweep all|msm|fexp|miller|gtp|pairing|affine|add|fused]
                           [--parent DIR]]
 
 Builds every CUDA source of the PyTorch port with `nvcc` and prints each
@@ -72,6 +72,29 @@ and at 65,536 (the host decode's scale) beside an empty launch on the
 same grid (`csrc/probe_empty.cu`), prints their ptxas lines, blocks an
 SM, SASS counts and every branch, exit and compare of their code, and
 stops.
+With `--redesign --sweep fused [--parent DIR]` it holds both modes of
+`pairing_fused.cu` against the plain version and the staged kernels on
+edge rows (K = 1-4, rows past a block's last, a (0, 0) leg unmasked and
+masked, a finite leg masked, coordinates in [p, 2p)), builds it at every
+variant of FUSED_VARIANTS (GM lanes a leg, GF lanes a row:
+`-DFTS_FUSED_GM`, `_GF`) and DIR's source, holds each
+against the built kernel and times both modes by direct launches in two
+turns at FUSED_ROWS (the membership check's 248 / 3,968 x 4, the PS
+verify's 64 / 4,096 x 2) beside the staged launches and an empty launch
+on its grid, prints ptxas, the rows and shared memory a block and the
+blocks an SM, times the mask kinds (none, one, all masked, (0, 0) legs)
+in shuffled rounds, times the built kernel's two parts alone on its grid
+(`csrc/probe_fused_parts.cu`: the Miller loops; the product and the final
+exponentiation at the kernel's rows a warp) beside the staged kernels,
+writes the SASS with each function's size beside `miller`'s,
+`final_exp`'s and `gt_product`'s and the branch lines
+(`pairing_fused.branches`), and stops.
+With `--stage2 [--root DIR]` it times `sharded_pairing_product` as
+`multichip_torch.py`'s stage 2 and `chip_smoke.py`'s mesh phase call it
+(3 and 64 PS rows, the (1, 1) and the (2, 2) mesh, fused and staged) by
+CUDA events and the host's clock, then `multichip_torch.py --logical
+--devices 4 --mp 2` with and without `--fused`, all with the port of DIR
+(a checkout, by default this one), and stops.
 With `--ubench` it builds only `csrc/probe_fe2.cu` and prints its
 micro-benchmarks (cycles of a dependent Fp2 product at one call site and
 unrolled at 8 and 64 sites, of an Fp2 addition, and of shared-memory
@@ -90,7 +113,29 @@ import subprocess
 import sys
 import time
 
-sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
+ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+ap.add_argument("out_dir", nargs="?", default="probe_out")
+ap.add_argument("--ladder", action="store_true", help="stop after the ladder checks and sweep")
+ap.add_argument("--redesign", action="store_true",
+                help="g1_msm, final_exp, miller, gt_product: checks, the S and G sweeps, SASS; "
+                     "then stop")
+ap.add_argument("--sweep", choices=("all", "msm", "fexp", "miller", "gtp", "pairing", "affine",
+                                    "add", "fused"),
+                default="all",
+                help="with --redesign: which kernel's variants to build and time")
+ap.add_argument("--parent", default=None,
+                help="with --sweep add or fused: a checkout of the parent commit whose "
+                     "g1_addsub.cu and g2_add.cu, or pairing_fused.cu, are built and timed beside "
+                     "the variants")
+ap.add_argument("--ubench", action="store_true",
+                help="build csrc/probe_fe2.cu, print its cycle counts, stop")
+ap.add_argument("--stage2", action="store_true",
+                help="time the mesh plane's fused pairing product as its dry runs call it, stop")
+ap.add_argument("--root", default=None,
+                help="with --stage2: the checkout whose port is imported (default: this one)")
+args = ap.parse_args()
+sys.path.insert(0, os.path.abspath(args.root) if args.root
+                else os.path.dirname(os.path.abspath(__file__)))
 import numpy as np  # noqa: E402
 import torch  # noqa: E402
 
@@ -99,22 +144,6 @@ from fabric_token_sdk_tpu_torch.ops import _build, curve as cv, curve2 as cv2  #
 from fabric_token_sdk_tpu_torch.ops import limbs as lb  # noqa: E402
 from fabric_token_sdk_tpu_torch.ops import pairing as pr, stages as st, tower as tw  # noqa: E402
 
-ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
-ap.add_argument("out_dir", nargs="?", default="probe_out")
-ap.add_argument("--ladder", action="store_true", help="stop after the ladder checks and sweep")
-ap.add_argument("--redesign", action="store_true",
-                help="g1_msm, final_exp, miller, gt_product: checks, the S and G sweeps, SASS; "
-                     "then stop")
-ap.add_argument("--sweep", choices=("all", "msm", "fexp", "miller", "gtp", "pairing", "affine",
-                                    "add"),
-                default="all",
-                help="with --redesign: which kernel's variants to build and time")
-ap.add_argument("--parent", default=None,
-                help="with --sweep add: a checkout of the parent commit whose g1_addsub.cu and "
-                     "g2_add.cu are built and timed beside the variants")
-ap.add_argument("--ubench", action="store_true",
-                help="build csrc/probe_fe2.cu, print its cycle counts, stop")
-args = ap.parse_args()
 if not torch.cuda.is_available():
     sys.exit("chip_probe.py needs an NVIDIA GPU")
 smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
@@ -174,6 +203,59 @@ def chk(name, got, want):
     print(name, "OK" if ok else "MISMATCH", flush=True)
     if not ok:
         bad.append(name)
+
+
+def stage2():
+    """The mesh plane's fused pairing product as its dry runs call it:
+    sharded_pairing_product on the (1, 1) and the (2, 2) mesh of this card,
+    fused and staged, on PS rows (K = 2, every GT value one) at
+    multichip_torch.py's stage-2 rows (3 on a (2, 2) mesh) and at
+    chip_smoke.py's (64); ms a call by CUDA events and by the host's clock
+    (mean of 5 after a warm-up); then multichip_torch.py --logical
+    --devices 4 --mp 2, with and without --fused, whole, by the host's
+    clock (mean of 3 after a warm-up). The port is the one of --root."""
+    import multichip_torch
+    from fabric_token_sdk_tpu_torch.crypto import pssign
+    from fabric_token_sdk_tpu_torch.parallel import make_mesh, sharded_pairing_product
+
+    print("stage2: the port of", os.path.dirname(os.path.abspath(multichip_torch.__file__)),
+          flush=True)
+    meshes = {"(1, 1)": make_mesh(1, devices=[dev]),
+              "(2, 2)": make_mesh(4, mp=2, devices=[dev] * 4)}
+    signer = pssign.keygen(1, rng)
+    for b in (3, 64):
+        msgs = [[rng.randrange(100)] for _ in range(b)]
+        sigs = [signer.sign(m, rng) for m in msgs]
+        Ps = torch.stack([torch.from_numpy(pr.encode_g1([hm.g1_neg(x.S), x.R]))
+                          for x in sigs]).to(dev)
+        Qs = torch.stack([torch.from_numpy(pr.encode_g2([signer.Q, signer.message_base(m)]))
+                          for m in msgs]).to(dev)
+        for name, mesh in meshes.items():
+            for fused in (True, False):
+                def call(mesh=mesh, fused=fused):
+                    return sharded_pairing_product(Ps, Qs, mesh, fused=fused)
+
+                if not pr.gt_is_one_host(call().cpu().numpy()).all():
+                    bad.append(f"stage2 {b} rows {name} fused={fused}")
+                ev = event_ms(call, 5)
+                t = time.perf_counter()
+                for _ in range(5):
+                    call()
+                torch.cuda.synchronize()
+                wall = (time.perf_counter() - t) / 5 * 1e3
+                print(f"stage2 {b} PS rows, {name} mesh, {'fused' if fused else 'staged'}: "
+                      f"{ev:.4f} ms by events, {wall:.4f} ms by the host's clock", flush=True)
+    for flags in (["--fused"], []):
+        argv = ["--logical", "--devices", "4", "--mp", "2", *flags]
+        walls = []
+        for _ in range(4):
+            t = time.perf_counter()
+            if multichip_torch.main(argv) != 0:
+                bad.append(f"multichip_torch.py {' '.join(argv)}")
+            walls.append(time.perf_counter() - t)
+        print(f"stage2 multichip_torch.py {' '.join(argv)}: {sum(walls[1:]) / 3:.4f} s by the "
+              f"host's clock ({'/'.join(f'{w:.4f}' for w in walls)}, the first a warm-up)",
+              flush=True)
 
 
 def ptxas_line(log, only=""):
@@ -294,6 +376,12 @@ def event_ms(call, reps):
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / reps
+
+
+if args.stage2:
+    stage2()
+    print("failed:", bad)
+    sys.exit(1 if bad else 0)
 
 
 def occupancy(lib, name):
@@ -492,6 +580,262 @@ ADD_VARIANTS = {"g1": tuple((tpi, t) for t in (32, 128) for tpi in (2, 4, 8)),
                 "g2": tuple((g, t) for t in (32, 128) for g in (4, 8, 16, 32))}
 if args.redesign and args.sweep in ("all", "add"):
     add_sweep()
+    if args.sweep != "all":
+        print("failed:", bad)
+        sys.exit(1 if bad else 0)
+
+# (lanes a leg GM, lanes a row GF) of fused_sweep, and its row sets: the
+# membership check's (K = 4) and the PS verify's (K = 2) at a block's and a
+# batch's rows
+FUSED_VARIANTS = tuple((gm, gf) for gm in (2, 4, 8) for gf in (4, 8, 16))
+FUSED_ROWS = ((248, 4), (3968, 4), (64, 2), (4096, 2))
+FUSED_MASK_ROUNDS = 8
+
+
+def fused_sweep():
+    """pairing_fused.cu, both modes: the built kernel against the plain
+    version and the staged kernels on edge rows (K = 1-4, rows past a
+    block's last, a (0, 0) leg unmasked and masked, a finite leg masked,
+    coordinates in [p, 2p)); every variant (GM, GF) and the parent's
+    source (--parent) held against the built kernel and timed by direct
+    launches in two turns at FUSED_ROWS beside the staged launches and an
+    empty launch on its grid; ptxas, shared memory and blocks an SM; the
+    mask kinds in shuffled rounds; the built kernel's SASS with its size and
+    every branch, exit and compare."""
+    stream = torch.cuda.current_stream().cuda_stream
+    empty = _build.build_probe("probe_empty.cu").fts_empty_launch
+    empty.argtypes, empty.restype = [ctypes.c_int, ctypes.c_int, ctypes.c_void_p], ctypes.c_int
+    jobs = []
+    if args.parent:
+        pdir = os.path.join(args.parent, "fabric_token_sdk_tpu_torch", "csrc")
+        jobs.append((("parent",), "pairing_fused.cu", pdir, (),
+                     os.path.join(_build.BUILD_DIR, "parent-pairing_fused.so")))
+    for gm, gf in FUSED_VARIANTS:
+        defines = (("FTS_FUSED_GM", gm), ("FTS_FUSED_GF", gf))
+        jobs.append(((gm, gf), "pairing_fused.cu", _build.CSRC, defines, os.path.join(
+            _build.BUILD_DIR, f"sweep-pairing_fused-{gm}-{gf}.so")))
+    jobs.append((("parts",), "probe_fused_parts.cu", _build.CSRC, (),
+                 os.path.join(_build.BUILD_DIR, "probe-fused-parts.so")))
+    libs = {("built",): (_build._lib_path("pairing_fused.cu"),
+                         ptxas_line(_build.BUILD_LOG.get("pairing_fused.cu", "")))}
+    libs.update(build_jobs(jobs))
+    parts_lib = libs.pop(("parts",), None)
+    P_, I_ = ctypes.c_void_p, ctypes.c_int
+    entries = {}
+    for key, (lib, p_) in libs.items():
+        L = ctypes.CDLL(lib)
+        prod, tail = L.fts_pairing_product, L.fts_gt_product_final_exp
+        prod.argtypes, prod.restype = [P_] * 4 + [I_, I_, P_], I_
+        tail.argtypes, tail.restype = [P_] * 2 + [I_, I_, P_], I_
+        cfg, occ = {}, {}
+        if key != ("parent",):
+            for k in (2, 4):
+                vals, blocks = (ctypes.c_int * 6)(), (ctypes.c_int * 2)()
+                L.fts_pairing_fused_config(k, vals)
+                rc = L.fts_pairing_fused_occupancy(k, blocks)
+                cfg[k], occ[k] = tuple(vals), (tuple(blocks) if rc == 0 else f"error {rc}")
+        entries[key] = (prod, tail, p_, cfg, occ)
+        print(f"pairing_fused {key}: ptxas {p_}; " + "; ".join(
+            f"K={k}: GM, GF {c[:2]}, rows/smem a warp {c[2]}/{c[3]} B (tail {c[4]}/"
+            f"{c[5]} B), warps an SM {occ[k]}" for k, c in cfg.items()), flush=True)
+
+    def grid_of(key, mode, n, k):
+        """(blocks, threads a block) of a launch: fts_pairing_product_grid,
+        else one warp a block (the tail; the parent's one thread a row)."""
+        _, _, _, cfg, _ = entries[key]
+        if mode == "product" and cfg:
+            grid = (ctypes.c_int * 2)()
+            ctypes.CDLL(libs[key][0]).fts_pairing_product_grid(n, k, grid)
+            return tuple(grid)
+        return (-(-n // (cfg[k][4] if cfg else 32)), 32)
+
+    def run(fn_pair, mode, P, Q, mask, f, out, n, k):
+        prod, tail = fn_pair
+        if mode == "product":
+            rc = prod(P.data_ptr(), Q.data_ptr(), 0 if mask is None else mask.data_ptr(),
+                      out.data_ptr(), n, k, stream)
+        else:
+            rc = tail(f.data_ptr(), out.data_ptr(), n, k, stream)
+        if rc:
+            raise RuntimeError(f"pairing_fused {mode}: CUDA error {rc}")
+
+    def staged(P, Q, mask):
+        n, k = P.shape[0], P.shape[1]
+        f = st.miller_rows(P.reshape(n * k, 2, 8), Q.reshape(n * k, 2, 2, 8))
+        return st._mask_one(f.reshape(n, k, 6, 2, 8), mask).contiguous()
+
+    # edge rows: 5 rows a K (rows past a block's last), leg 0 of row 1 (0, 0),
+    # rows 2-3 lifted into [p, 2p); masked: that leg and the last leg of row 4
+    g1p = [hm.g1_mul(hm.G1_GEN, rng.randrange(1, hm.R)) for _ in range(12)]
+    g2p = [hm.g2_mul(hm.G2_GEN, rng.randrange(1, hm.R)) for _ in range(12)]
+    poolP, poolQ = torch.from_numpy(pr.encode_g1(g1p)), torch.from_numpy(pr.encode_g2(g2p))
+    n_e, edge, plain_in = 5, {}, []
+    for k in (1, 2, 3, 4):
+        idx = torch.tensor([rng.randrange(12) for _ in range(n_e * k)])
+        eP, eQ = poolP[idx].clone(), poolQ[idx].clone()
+        eP[k] = 0  # row 1, leg 0: the (0, 0) leg
+        eP = lifted(eP, range(2 * k, 4 * k))
+        eQ = lifted(eQ, range(2 * k, 4 * k))
+        mask = torch.zeros((n_e, k), dtype=torch.uint8)
+        mask[1, 0] = mask[4, k - 1] = 1
+        edge[k] = (eP.reshape(n_e, k, 2, 8), eQ.reshape(n_e, k, 2, 2, 8), mask)
+        plain_in.append((eP, eQ))
+    # the plain results of every group by one plain Miller call and one plain
+    # final exponentiation
+    f_plain = st.miller_plain(torch.cat([a for a, _ in plain_in]), torch.cat([b for _, b in plain_in]))
+    prods, at = [], 0
+    for k, (_, _, mask) in edge.items():
+        fk = f_plain[at:at + n_e * k].reshape(n_e, k, 6, 2, 8)
+        at += n_e * k
+        prods += [st.gt_product_plain(fk), st.gt_product_plain(st._mask_one(fk, mask.bool().numpy()))]
+    gt_plain = st.final_exp_plain(torch.cat(prods))
+    at = 0
+    for k, (eP, eQ, mask) in edge.items():
+        for mtag, m in (("", None), (" masked", mask)):
+            want = gt_plain[at:at + n_e]
+            at += n_e
+            dP, dQ = eP.contiguous().to(dev), eQ.contiguous().to(dev)
+            dm = None if m is None else m.to(dev)
+            f = staged(dP, dQ, None if m is None else m.bool().cpu().numpy())
+            chk(f"fused edges K={k}{mtag}: staged kernels vs plain", st.final_exp_rows(
+                st.gt_product_rows(f)), want)
+            for key, (prod, tail, _, _, _) in entries.items():
+                for mode in ("product", "tail"):
+                    out = torch.empty((n_e, 6, 2, 8), dtype=torch.int32, device=dev)
+                    run((prod, tail), mode, dP, dQ, dm, f, out, n_e, k)
+                    torch.cuda.synchronize()
+                    chk(f"fused edges {key} {mode} K={k}{mtag} vs plain", out, want)
+    # the row sets: random legs from the pool, each variant against the staged
+    # launches, then timed in two turns by direct launches
+    times, floor, staged_ms, row_sets = {}, {}, {}, {}
+    for n, k in FUSED_ROWS:
+        idx = torch.tensor([rng.randrange(12) for _ in range(n * k)])
+        P = poolP[idx].reshape(n, k, 2, 8).contiguous().to(dev)
+        Q = poolQ[idx].reshape(n, k, 2, 2, 8).contiguous().to(dev)
+        f = staged(P, Q, None)
+        want = st.final_exp_rows(st.gt_product_rows(f))
+        row_sets[(n, k)] = (P, Q, f, want)
+        outs = {}
+        for key, (prod, tail, _, _, _) in entries.items():
+            for mode in ("product", "tail"):
+                outs[(key, mode)] = torch.empty_like(want)
+                run((prod, tail), mode, P, Q, None, f, outs[(key, mode)], n, k)
+        torch.cuda.synchronize()
+        for (key, mode), out in outs.items():
+            chk(f"fused {key} {mode} {n}x{k} vs the staged kernels", out, want)
+        staged_ms[(n, k)] = (event_ms(lambda: st.final_exp_rows(st.gt_product_rows(staged(
+            P, Q, None))), 3), event_ms(lambda: st.final_exp_rows(st.gt_product_rows(f)), 5))
+        for turn, order in enumerate((list(entries), list(entries)[::-1])):
+            for key in order:
+                prod, tail, _, cfg, _ = entries[key]
+                for mode, reps in (("product", 3), ("tail", 5)):
+                    out = outs[(key, mode)]
+                    ms = event_ms(lambda: run((prod, tail), mode, P, Q, None, f, out, n, k), reps)
+                    times.setdefault((key, mode, n, k), []).append(ms)
+                    g = grid_of(key, mode, n, k)
+                    if g not in floor:
+                        floor[g] = event_ms(lambda: empty(g[0], g[1], stream), 50)
+    print("fused: ms by direct launches (mean of two turns) at rows x K " + ", ".join(
+        f"{n}x{k}" for n, k in FUSED_ROWS) + "; staged miller+gt_product+final_exp / "
+        "gt_product+final_exp " + ", ".join(f"{n}x{k} {a:.4f}/{b:.4f}" for (n, k), (a, b)
+                                            in staged_ms.items()), flush=True)
+    sums = {}
+    for key, (_, _, p_, cfg, occ) in entries.items():
+        for mode in ("product", "tail"):
+            ms = {(n, k): sum(t) / len(t) for (k_, m_, n, k), t in times.items()
+                  if k_ == key and m_ == mode}
+            sums[(key, mode)] = sum(ms.values())
+            print(f"  {key} {mode}: " + ", ".join(
+                f"{n}x{k} {v:.4f} (turns {'/'.join(f'{t:.4f}' for t in times[(key, mode, n, k)])}, "
+                f"empty {floor[grid_of(key, mode, n, k)]:.4f})"
+                for (n, k), v in ms.items()) + f"; sum {sums[(key, mode)]:.4f}", flush=True)
+    for mode in ("product", "tail"):
+        ranked = sorted((v, key) for (key, m_), v in sums.items()
+                        if m_ == mode and key not in (("built",), ("parent",)))
+        print(f"fused {mode}: least sum {ranked[0][1]} {ranked[0][0]:.4f} ms; next "
+              + ", ".join(f"{k_} {v:.4f}" for v, k_ in ranked[1:4]), flush=True)
+    # the built kernel's two parts, each alone on its grid (probe_fused_parts.cu),
+    # beside the kernel, the staged miller and gt_product + final_exp, and the
+    # tail, in two turns
+    if parts_lib is not None:
+        part = ctypes.CDLL(parts_lib[0]).fts_probe_fused_part
+        part.argtypes, part.restype = [I_] + [P_] * 4 + [I_, I_, P_], I_
+        prod, tail = entries[("built",)][:2]
+        for (n, k), (P, Q, f, want) in row_sets.items():
+            out, words = torch.empty_like(want), torch.empty(n, dtype=torch.int32, device=dev)
+
+            def go(which, P=P, Q=Q, f=f, out=out, words=words, n=n, k=k):
+                rc = part(which, P.data_ptr(), Q.data_ptr(), f.data_ptr(),
+                          (words if which == 0 else out).data_ptr(), n, k, stream)
+                if rc:
+                    raise RuntimeError(f"probe_fused_parts part {which}: CUDA error {rc}")
+
+            go(1)
+            torch.cuda.synchronize()
+            chk(f"fused exponentiation part {n}x{k} vs the staged kernels", out, want)
+            calls = {
+                "pairing_product": lambda: run((prod, tail), "product", P, Q, None, f, out, n, k),
+                "Miller part": lambda: go(0),
+                "exponentiation part": lambda: go(1),
+                "staged miller": lambda: st.miller_rows(P.reshape(n * k, 2, 8),
+                                                        Q.reshape(n * k, 2, 2, 8)),
+                "staged gt_product+final_exp": lambda: st.final_exp_rows(st.gt_product_rows(f)),
+                "tail": lambda: run((prod, tail), "tail", P, Q, None, f, out, n, k)}
+            part_ms = {}
+            for order in (list(calls), list(calls)[::-1]):
+                for name in order:
+                    part_ms.setdefault(name, []).append(event_ms(calls[name], 3))
+            print(f"fused parts {n}x{k} (built, grid {grid_of(('built',), 'product', n, k)}): "
+                  + ", ".join(f"{name} {sum(v) / 2:.4f} ({'/'.join(f'{t:.4f}' for t in v)})"
+                              for name, v in part_ms.items()) + " ms", flush=True)
+    # the mask kinds on the built kernel at the membership batch's rows, in
+    # shuffled rounds: none masked, one leg a row masked, all masked, (0, 0)
+    # legs unmasked
+    n, k = 3968, 4
+    idx = torch.tensor([rng.randrange(12) for _ in range(n * k)])
+    P = poolP[idx].reshape(n, k, 2, 8).contiguous().to(dev)
+    Q = poolQ[idx].reshape(n, k, 2, 2, 8).contiguous().to(dev)
+    one = torch.zeros((n, k), dtype=torch.uint8)
+    one[:, 1] = 1
+    kinds = {"none masked": (P, torch.zeros((n, k), dtype=torch.uint8)),
+             "one masked": (P, one), "all masked": (P, torch.ones((n, k), dtype=torch.uint8)),
+             "(0, 0) legs": (torch.zeros_like(P), torch.zeros((n, k), dtype=torch.uint8))}
+    prod, tail = entries[("built",)][:2]
+    out = torch.empty((n, 6, 2, 8), dtype=torch.int32, device=dev)
+    for kind, (kP, km) in kinds.items():
+        want = st.final_exp_rows(st.gt_product_rows(staged(kP, Q, km.bool().numpy())))
+        run((prod, tail), "product", kP, Q, km.to(dev), None, out, n, k)
+        torch.cuda.synchronize()
+        chk(f"fused built {kind} {n}x{k} vs the staged kernels", out, want)
+    dev_masks = {kind: (kP, km.to(dev)) for kind, (kP, km) in kinds.items()}
+    kind_ms = {kind: [] for kind in kinds}
+    order = list(kinds)
+    for _ in range(FUSED_MASK_ROUNDS):
+        rng.shuffle(order)
+        for kind in order:
+            kP, km = dev_masks[kind]
+            kind_ms[kind].append(event_ms(lambda: run((prod, tail), "product", kP, Q, km, None, out,
+                                                      n, k), 3))
+    means = {kind: sum(v) / len(v) for kind, v in kind_ms.items()}
+    turns = max((max(v) - min(v)) / min(v) for v in kind_ms.values())
+    print(f"fused mask kinds {n}x{k}, {FUSED_MASK_ROUNDS} shuffled rounds: " + ", ".join(
+        f"{kind} {v:.4f}" for kind, v in means.items())
+        + f" ms; spread between kinds {100 * (max(means.values()) / min(means.values()) - 1):.2f}%, "
+        f"between turns of one kind up to {100 * turns:.2f}%", flush=True)
+    pats = {**SASS_PATS, "LDL/STL": r"\b(?:LDL|STL)", "EXIT": r"\bEXIT", "predicated": r"@!?P\d",
+            "instructions": r"/\*[0-9a-f]{4,}\*/ "}
+    sass = write_sass("pairing_fused.cu", _build._lib_path("pairing_fused.cu"))
+    code_summary(sass, r"Function : \S+", pats)
+    for source in ("miller.cu", "final_exp.cu", "gt_product.cu"):
+        code_summary(write_sass(source, _build._lib_path(source)), r"Function : \S+", pats)
+    with open(os.path.join(out_dir, "pairing_fused.branches"), "w") as fh, \
+            contextlib.redirect_stdout(fh):
+        for kernel in ("pairing_product_kernel", "gt_product_final_exp_kernel"):
+            branch_lines(sass, kernel)
+
+
+if args.redesign and args.sweep in ("all", "fused"):
+    fused_sweep()
     if args.sweep != "all":
         print("failed:", bad)
         sys.exit(1 if bad else 0)

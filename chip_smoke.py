@@ -64,7 +64,10 @@ at the 1,024-tx prove's rows, `g1_to_affine` and `g2_to_affine` on Z =
 the prove's `g1_add` and `g2_add` on its own operands, on P + P, on P +
 (-P) and with Q at infinity, in eight rounds of shuffled turns
 (`[secret-scalars]`); the kernels redesigned for the H100 print their
-lanes, ptxas line and share of bound (`[ladder]`, `[redesign]`; for
+lanes, ptxas line and share of bound (`[ladder]`, `[redesign]`, the
+fused product's two modes in a `[redesign]` line of the mesh phase with
+their rows, shared memory and blocks an SM, direct launches and an
+empty launch on the same grid; for
 `final_exp`, `miller`, `gt_product` and `g2_add` also the shared memory
 a block, for the last three, the to-affine kernels and `g1_addsub` the
 blocks an SM; for the to-affine kernels and the adds the time of an
@@ -1449,6 +1452,18 @@ def main() -> int:
     from fabric_token_sdk_tpu_torch.parallel import (
         make_mesh, sharded_pairing_product, sharded_schnorr_rows)
 
+    def fused_config(k: int) -> tuple:
+        """pairing_fused.cu as built, for K legs a row
+        (`fts_pairing_fused_config`): GM, GF, then the rows and
+        dynamic shared memory a warp of each mode, then the warps of each
+        an SM holds (`fts_pairing_fused_occupancy`)."""
+        lib = _build.build_all()["pairing_fused.cu"]
+        vals, blocks = (ctypes.c_int * 6)(), (ctypes.c_int * 2)()
+        if lib.fts_pairing_fused_config(k, vals) != 0 or \
+                lib.fts_pairing_fused_occupancy(k, blocks) != 0:
+            fail("pairing_fused.cu: its config or occupancy entry failed")
+        return tuple(vals) + tuple(blocks)
+
     mesh22 = make_mesh(4, mp=2, devices=[dev] * 4)
     mesh11 = make_mesh(1, devices=[dev])
 
@@ -1553,10 +1568,24 @@ def main() -> int:
         k = sP.shape[1]
         row = {"k": k, "rows_block": sP.shape[0], "rows_batch": sPb.shape[0], "max_abs_err": err,
                "plain_ms": p_ms, "plain_tail_ms": p_tail_ms}
+        cfg = fused_config(k)
         for size, (PP, QQ, ff) in (("block", (sP, sQ, fb)), ("batch", (sPb, sQb, fbig))):
             b = PP.shape[0]
             row[f"ms_{size}"] = timed(lambda: st.pairing_product_rows(PP, QQ), 3)
             row[f"tail_ms_{size}"] = timed(lambda: st.gt_product_final_exp_rows(ff), 3)
+            # by direct launches (no wrapper), beside an empty launch on the grid
+            out_d = torch.empty((b,) + tuple(ff.shape[2:]), dtype=torch.int32, device=dev)
+            row[f"direct_ms_{size}"] = timed(lambda: kernels_by_name["pairing_product"].launch(
+                dev, PP.data_ptr(), QQ.data_ptr(), None, out_d.data_ptr(), b, k), 3)
+            row[f"tail_direct_ms_{size}"] = timed(
+                lambda: kernels_by_name["gt_product_final_exp"].launch(
+                    dev, ff.data_ptr(), out_d.data_ptr(), b, k), 3)
+            grid = (ctypes.c_int * 2)()
+            if _build.build_all()["pairing_fused.cu"].fts_pairing_product_grid(b, k, grid) != 0:
+                fail("pairing_fused.cu: its grid entry failed")
+            row[f"empty_ms_{size}"] = timed(lambda: empty(grid[0], grid[1], stream), 50)
+            row[f"grid_{size}"] = tuple(grid)
+            row[f"tail_empty_ms_{size}"] = timed(lambda: empty(-(-b // cfg[4]), 32, stream), 50)
             row[f"staged_ms_{size}"] = timed(lambda: staged_seq(PP, QQ), 3)
             ops_tail = b * (k - 1) * FP12_MUL + b * FEXP_PER_ROW + FP12_INV
             row[f"bound_{size}"] = bound_ms(
@@ -1574,6 +1603,34 @@ def main() -> int:
             f"{v['tail_bound_batch'][0]:.4f}), staged miller+gt_product+final_exp "
             f"{v['staged_ms_block']:.3f}/{v['staged_ms_batch']:.3f}, plain {v['plain_ms']:.0f}"
             for tag, v in mesh_stats.items()) + f" [{card}]")
+
+    ptxas = {}
+    lines = _build.BUILD_LOG.get("pairing_fused.cu", "").splitlines()
+    for i, ln in enumerate(lines):
+        if "Compiling entry function" in ln:
+            entry = "pairing_product" if "pairing_product_kernel" in ln else "gt_product_final_exp"
+            ptxas[entry] = " ".join(x.split(":", 1)[-1].strip() for x in lines[i + 2:i + 4])
+    for v in mesh_stats.values():
+        c = fused_config(v["k"])
+        v["lanes"] = (f"GM {c[0]}, GF {c[1]}, legs side by side, {c[2]} rows and {c[3]} B "
+                      f"dynamic shared memory a warp, {c[6]} warps an SM; grid "
+                      f"{v['grid_block'][0]} x {v['grid_block'][1]} / "
+                      f"{v['grid_batch'][0]} x {v['grid_batch'][1]} threads")
+        v["tail_lanes"] = (f"GF {c[1]}, one warp a block, {c[4]} rows, {c[5]} B dynamic shared "
+                           f"memory, {c[7]} blocks an SM")
+        for prefix in ("", "tail_"):
+            v[f"{prefix}share"] = tuple(v[f"{prefix}bound_{size}"][0] / v[f"{prefix}ms_{size}"]
+                                        for size in ("block", "batch"))
+    say("redesign", "; ".join(
+        f"{name} {tag} {v['rows_block']}/{v['rows_batch']} x K={v['k']} ({v[pre + 'lanes']}; "
+        f"ptxas {ptxas.get(name)}): {v[pre + 'ms_block']:.4f}/{v[pre + 'ms_batch']:.4f} ms "
+        f"through the wrapper, direct launches {v[pre + 'direct_ms_block']:.4f}/"
+        f"{v[pre + 'direct_ms_batch']:.4f}, empty launch {v[pre + 'empty_ms_block']:.4f}/"
+        f"{v[pre + 'empty_ms_batch']:.4f}, bound {v[pre + 'bound_block'][0]:.4f}/"
+        f"{v[pre + 'bound_batch'][0]:.4f}, {100 * v[pre + 'share'][0]:.2f}%/"
+        f"{100 * v[pre + 'share'][1]:.2f}% of bound"
+        for name, pre in (("pairing_product", ""), ("gt_product_final_exp", "tail_"))
+        for tag, v in mesh_stats.items()) + f" [{card}]")
 
     # stage 2 of the dry run: the PS checks through the fused sharded
     # product on both meshes (5 planted rows), each the main path of the
@@ -1678,13 +1735,6 @@ def main() -> int:
         f"an unparsable blob) equals the host PublicKey.verify, with and without the mesh; "
         f"launches a call {sign_launches} [{card}]")
 
-    ptxas = {}
-    lines = _build.BUILD_LOG.get("pairing_fused.cu", "").splitlines()
-    for i, ln in enumerate(lines):
-        if "Compiling entry function" in ln:
-            entry = "pairing_product" if "ILb1E" in ln else "gt_product_final_exp"
-            ptxas[entry] = " ".join(x.split(":", 1)[-1].strip() for x in lines[i + 2:i + 4])
-    say("mesh", f"pairing_fused.cu ptxas: {ptxas}")
 
     # ---------------------------------------------------------------- report
     kernels = []
@@ -1786,7 +1836,11 @@ def main() -> int:
             "ps_ms": [vp[f"{prefix}ms_block"], vp[f"{prefix}ms_batch"]],
             "ps_bound_ms": [vp[f"{prefix}bound_block"][0], vp[f"{prefix}bound_batch"][0]],
             "ps_staged_ms": [vp["staged_ms_block"], vp["staged_ms_batch"]],
-            "ptxas": ptxas.get(name),
+            "ptxas": ptxas.get(name), "lanes": v[f"{prefix}lanes"],
+            "direct_ms": [v[f"{prefix}direct_ms_block"], v[f"{prefix}direct_ms_batch"]],
+            "empty_ms": [v[f"{prefix}empty_ms_block"], v[f"{prefix}empty_ms_batch"]],
+            "share_batch": v[f"{prefix}share"][1],
+            "ps_direct_ms": [vp[f"{prefix}direct_ms_block"], vp[f"{prefix}direct_ms_batch"]],
         })
     print(json.dumps({
         "range_verify_median_ms": {str(k): v * 1e3 for k, v in range_medians.items()},

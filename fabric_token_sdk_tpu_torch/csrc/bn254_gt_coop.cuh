@@ -3,10 +3,10 @@
 //
 // Built over bn254_ladder.cuh's field at TPI = 1 (Fe2<1>: each lane
 // holds whole elements, so the field needs no shuffle). Fp12 is the
-// reference's flat w-basis of bn254_tower.cuh (c[j] the coefficient of
+// reference's flat w-basis (ops/tower.py; c[j] the coefficient of
 // w^j, w^6 = XI = 9 + i; c0 = (c[0], c[2], c[4]), c1 = (c[1], c[3],
 // c[5]) over Fp6 = Fp2[v]/(v^3 - XI), w^2 = v), with its Frobenius
-// constants FROB_GAMMA.
+// constants FROB_GAMMA (bn254_tower.cuh).
 //
 // Where the values live. A row's values are Fp2 cells in shared
 // memory: final_exp's 10 slots of 6 cells (an Fp12 each), or the fewer
@@ -109,7 +109,7 @@ __device__ __forceinline__ Fe2 fe2_neg(const Group& g, const Fe2& a) {
   return Fe2{coop::fe_sub(g, z, a.c0), coop::fe_sub(g, z, a.c1)};
 }
 
-// times XI = 9 + i: (9 a0 - a1) + (a0 + 9 a1) i, as bn254_tower.cuh
+// times XI = 9 + i: (9 a0 - a1) + (a0 + 9 a1) i, as the reference's
 __device__ __forceinline__ Fe2 fe2_mul_xi(const Group& g, const Fe2& a) {
   Fe2 e = coop::fe2_dbl(g, a);
   e = coop::fe2_dbl(g, e);
@@ -182,6 +182,43 @@ struct Row {
     }
   }
 };
+
+// this lane's coefficients of the Fp12 at src (6, 2, 8) into slot `slot`,
+// then a barrier
+template <int G, int NC>
+__device__ __forceinline__ void load_slot(const Row<G, NC>& r, const uint32_t* __restrict__ src,
+                                          int slot) {
+#pragma unroll
+  for (int j = 0; j < 6; ++j) {
+    if (!r.owns(j)) continue;
+    Fe2 v;
+#pragma unroll
+    for (int k = 0; k < NW; ++k) {
+      v.c0.w[k] = __ldg(src + (2 * j) * NW + k);
+      v.c1.w[k] = __ldg(src + (2 * j + 1) * NW + k);
+    }
+    r.store(slot * 6 + j, v);
+  }
+  r.sync();
+}
+
+// this lane's coefficients of slot `slot`, canonical, to the Fp12 at dst;
+// nothing when the row is not live (a clamped row past the last)
+template <int G, int NC>
+__device__ __forceinline__ void store_slot(const Row<G, NC>& r, int slot, uint32_t* __restrict__ dst,
+                                           bool live) {
+#pragma unroll
+  for (int j = 0; j < 6; ++j) {
+    if (!live || !r.owns(j)) continue;
+    const Fe2 v = r.load(slot * 6 + j);
+    const Fe c0 = coop::fe_canon(r.g, v.c0), c1 = coop::fe_canon(r.g, v.c1);
+#pragma unroll
+    for (int k = 0; k < NW; ++k) {
+      dst[(2 * j) * NW + k] = c0.w[k];
+      dst[(2 * j + 1) * NW + k] = c1.w[k];
+    }
+  }
+}
 
 // sum of the cells base + j for the set bits j of mask; with conj the odd
 // cells enter negated (a conjugated Fp12)
@@ -336,7 +373,7 @@ __device__ __forceinline__ void op_copy(const Row<G, NC>& r, int dst, int a, boo
   r.sync();
 }
 
-// dst = a^-1 = (c0 - c1 w) / (c0^2 - v c1^2), as bn254_tower.cuh's fp12_inv
+// dst = a^-1 = (c0 - c1 w) / (c0^2 - v c1^2), as the reference's fp12_inv
 template <int G, int NC>
 __device__ __forceinline__ void op_inv(const Row<G, NC>& r, int dst, int a) {
   const Group& g = r.g;

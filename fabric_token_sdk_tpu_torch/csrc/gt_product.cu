@@ -14,13 +14,14 @@
 // canonical Montgomery.
 //
 // What bounds it on the H100: integer multiplies, K - 1 Fp12 products of
-// 54 base products a row, against 384 (K + 1) bytes moved. The design:
+// 54 base products a row, against 384 (K + 1) bytes moved. The design
+// (the row function of bn254_gt_rows.cuh, shared with pairing_fused.cu):
 // a row's accumulator and the leg it takes in are two Fp12 slots in
 // shared memory (with the product cells 30 cells, 1,920 B a row), each
 // product gtc::op_mul's 18 Fp2 products and 6 output coefficients split
 // over the row's G lanes; no stack. G is from the sweep of
 // chip_probe.py --redesign --sweep gtp.
-#include "bn254_gt_coop.cuh"
+#include "bn254_gt_rows.cuh"
 
 using namespace bn254;
 
@@ -40,51 +41,6 @@ template <int NG>
 using Row = gtc::Row<NG, NC>;
 // a block's cells: the dynamic shared memory of a launch
 constexpr size_t SMEM = (size_t)ROWS_PER_BLOCK * Row<G>::WORDS * 4;
-
-// this lane's coefficients of the Fp12 at src into slot `slot`
-template <int NG>
-__device__ __forceinline__ void load_leg(const Row<NG>& r, const uint32_t* __restrict__ src,
-                                         int slot) {
-#pragma unroll
-  for (int j = 0; j < 6; ++j) {
-    if (!r.owns(j)) continue;
-    gtc::Fe2 v;
-#pragma unroll
-    for (int k = 0; k < NW; ++k) {
-      v.c0.w[k] = __ldg(src + (2 * j) * NW + k);
-      v.c1.w[k] = __ldg(src + (2 * j + 1) * NW + k);
-    }
-    r.store(slot * 6 + j, v);
-  }
-  r.sync();
-}
-
-// One row by this lane of NG. `live` is false for a row past the last: it
-// runs (every lane takes part in every barrier) and stores nothing.
-template <int NG>
-__device__ __forceinline__ void gt_product_row(const Row<NG>& r, const uint32_t* __restrict__ f,
-                                               uint32_t* __restrict__ out, int row, int k,
-                                               bool live) {
-  const uint32_t* src = f + (size_t)row * k * gtc::GT_WORDS;
-  load_leg(r, src, 0);
-#pragma unroll 1
-  for (int j = 1; j < k; ++j) {
-    load_leg(r, src + (size_t)j * gtc::GT_WORDS, 1);
-    gtc::op_mul(r, 0, 0, 1, false);
-  }
-  uint32_t* dst = out + (size_t)row * gtc::GT_WORDS;
-#pragma unroll
-  for (int j = 0; j < 6; ++j) {
-    if (!live || !r.owns(j)) continue;
-    const gtc::Fe2 v = r.load(j);
-    const gtc::Fe c0 = coop::fe_canon(r.g, v.c0), c1 = coop::fe_canon(r.g, v.c1);
-#pragma unroll
-    for (int w = 0; w < NW; ++w) {
-      dst[(2 * j) * NW + w] = c0.w[w];
-      dst[(2 * j + 1) * NW + w] = c1.w[w];
-    }
-  }
-}
 
 }  // namespace
 
@@ -106,7 +62,7 @@ void host_rows(const uint32_t* f, uint32_t* out, int n, int k) {
   for (int row = 0; row < n; ++row) {
     auto body = [&](int lane) {
       const Row<NG> r((uint32_t)lane, cells.data(), 1);
-      gt_product_row<NG>(r, f, out, row, k, true);
+      gtc::gt_product_row<NG>(r, f, out, row, k, true);
     };
     coop::host_group(NG, body);
   }
@@ -143,7 +99,7 @@ __global__ void __launch_bounds__(THREADS) gt_product_kernel(const uint32_t* __r
   const Row<G> r(threadIdx.x % G, cells + slot, ROWS_PER_BLOCK);
   const int row = (int)(blockIdx.x * ROWS_PER_BLOCK + slot);
   const bool live = row < n;  // a clamped row still takes part in every barrier
-  gt_product_row<G>(r, f, out, live ? row : n - 1, k, live);
+  gtc::gt_product_row<G>(r, f, out, live ? row : n - 1, k, live);
 }
 
 // lets a launch take SMEM of dynamic shared memory (above 48 KB only

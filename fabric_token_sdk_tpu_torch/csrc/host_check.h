@@ -12,7 +12,6 @@
 #define __constant__
 #define __forceinline__ inline
 #define __ldg(ptr) (*(ptr))
-#define FTS_NOINLINE __attribute__((noinline))
 
 // Lockstep emulation of the lanes of a row, for the cooperative kernels
 // (bn254_ladder.cuh at TPI > 1, g1_msm.cu's split windows, final_exp.cu's

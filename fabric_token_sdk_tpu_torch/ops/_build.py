@@ -35,8 +35,8 @@ SOURCES = (
     "g2_mul.cu", "g2_add.cu", "g2_to_affine.cu", "miller.cu", "gt_product.cu",
     "final_exp.cu", "pairing_fused.cu",
 )
-HEADERS = ("bn254_fp.cuh", "bn254_tower.cuh", "bn254_pairing.cuh", "bn254_ladder.cuh",
-           "bn254_gt_coop.cuh", "bn254_inv.cuh")
+HEADERS = ("bn254_fp.cuh", "bn254_tower.cuh", "bn254_ladder.cuh", "bn254_gt_coop.cuh",
+           "bn254_gt_rows.cuh", "bn254_miller_row.cuh", "bn254_inv.cuh")
 NVCC_FLAGS = (
     "-gencode=arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",

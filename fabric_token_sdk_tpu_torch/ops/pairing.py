@@ -212,9 +212,9 @@ def product_rows(f):
 # each set bit), the Straus pass over the coefficient bits (its squarings
 # cyclotomic; an accumulator still at one is set by its first term, not
 # squared or multiplied) and the Frobenius combine. `final_exp` runs the
-# program on tensors; the final_exp kernel (`csrc/final_exp.cu`) runs the
-# same program from the table FE_PROGRAM in its source, which a CPU test
-# holds equal to `final_exp_program_words()`.
+# program on tensors; the final_exp and pairing_fused kernels run the
+# same program from the table FE_PROGRAM of `csrc/bn254_gt_rows.cuh`, which
+# a CPU test holds equal to `final_exp_program_words()`.
 
 (FE_MUL, FE_MULC, FE_CSQR, FE_FROB1, FE_FROB2, FE_FROB3, FE_CONJ, FE_INV,
  FE_COPY) = range(1, 10)  # FE_MULC: a times conj(b)

@@ -60,6 +60,11 @@ ENTRY = {  # name: (source in csrc/, symbol, argtypes[, restype])
     "final_exp_config": ("final_exp", "fts_final_exp_config", [_P, _P], _I),
     "pairing_product": ("pairing_fused", "host_pairing_product", [_P, _P, _P, _P, _I, _I]),
     "gt_product_final_exp": ("pairing_fused", "host_gt_product_final_exp", [_P, _P, _I, _I]),
+    "pairing_product_lanes": ("pairing_fused", "host_pairing_product_lanes",
+                              [_P, _P, _P, _P, _I, _I, _I, _I], _I),
+    "gt_product_final_exp_lanes": ("pairing_fused", "host_gt_product_final_exp_lanes",
+                                   [_P, _P, _I, _I, _I], _I),
+    "pairing_fused_config": ("pairing_fused", "fts_pairing_fused_config", [_I, _P], _I),
 }
 
 
@@ -328,9 +333,10 @@ def _fexp_rows(host):
 
 
 def test_final_exp_program_table_matches_the_plain_program():
-    """The kernel's FE_PROGRAM (csrc/final_exp.cu) is the program the
-    plain version runs (ops/pairing.py:final_exp_program)."""
-    with open(os.path.join(CSRC, "final_exp.cu")) as fh:
+    """The kernels' FE_PROGRAM (csrc/bn254_gt_rows.cuh, the row function
+    of final_exp.cu and pairing_fused.cu) is the program the plain
+    version runs (ops/pairing.py:final_exp_program)."""
+    with open(os.path.join(CSRC, "bn254_gt_rows.cuh")) as fh:
         src = fh.read()
     body = src[src.index("FE_PROGRAM[FE_PROGRAM_LEN] = {"):]
     body = body[: body.index("};")]
@@ -737,3 +743,139 @@ def test_pairing_fused_rows_other_leg_counts(host, k):
     tail = torch.empty_like(out)
     host["gt_product_final_exp"](f.contiguous().data_ptr(), tail.data_ptr(), 2, k)
     assert torch.equal(tail, out)
+
+
+# the fused kernel's variants that host_pairing_product_lanes builds:
+# (lanes a leg GM, lanes a row GF), and the tail's GF
+FUSED_LANES = [(gm, gf) for gm in (2, 4, 8) for gf in (4, 8, 16)]
+TAIL_LANES = [4, 8, 16]
+# legs a row: K = 1-4, and 6, where GM = 8 takes two rounds of legs
+FUSED_K = [1, 2, 3, 4, 6]
+
+
+def _fused_plan(gm, gf, k):
+    """(rows, shared bytes) of a warp of both modes, as pairing_fused.cu
+    lays them out: a leg's 52 Fp2 cells a group of GM lanes, a row's 78
+    (ten Fp12 slots and 18 product cells) in turns of 32 / GF rows; one
+    round of legs puts the rows over the legs' cells past their f, several
+    rounds the rows after the legs."""
+    leg, row, slot = 52 * 16, 78 * 16, 6 * 16
+    groups, turn = 32 // gm, 32 // gf
+    rows = max(1, groups // k)
+    legs = min(k, groups // rows)
+    rounds = -(-k // legs)
+    row_words = -(-rows // turn) * turn * row
+    if rounds == 1:
+        words = max(leg * groups, slot * groups + row_words)
+    else:
+        words = leg * groups + row_words
+    return rows, words * 4, turn, turn * row * 4
+
+
+@pytest.mark.parametrize("k", FUSED_K)
+def test_pairing_fused_build_config_is_a_tested_one(host, k):
+    """The fused kernel's lanes (FTS_FUSED_GM, _GF, as the library
+    reports them for K legs a row) are a variant of the lane tests, and its
+    rows and shared memory a warp, both modes, are that layout's."""
+    vals = (ctypes.c_int * 6)()
+    assert host["pairing_fused_config"](k, vals) == 0
+    gm, gf, *rest = tuple(vals)
+    assert (gm, gf) in FUSED_LANES and gf in TAIL_LANES
+    assert tuple(rest) == _fused_plan(gm, gf, k)
+    assert host["pairing_fused_config"](0, (ctypes.c_int * 6)()) == -1
+
+
+@pytest.fixture(scope="module")
+def fused_rows():
+    """3 rows a K (rows past a warp's last for most layouts; K = 3 leaves
+    groups with no leg): row 0 lifted into [p, 2p), leg 0 of row 1 a (0,
+    0) leg, and a mask of that leg and the last leg of row 2. Their plain
+    results with and without the mask, and the masked Miller values, by
+    one plain Miller call and one plain final exponentiation."""
+    rng = random.Random(56)
+    n, cases, legs_P, legs_Q = 3, {}, [], []
+    for k in FUSED_K:
+        p, q = _pts(rng, n * k), _g2pts(rng, n * k)
+        p[k] = None
+        P = _lift(torch.from_numpy(pr.encode_g1(p)), range(k))
+        Q = _lift(torch.from_numpy(pr.encode_g2(q)), range(k))
+        mask = torch.zeros((n, k), dtype=torch.uint8)
+        mask[1, 0] = mask[2, k - 1] = 1
+        cases[k] = (P.reshape(n, k, 2, 8).contiguous(), Q.reshape(n, k, 2, 2, 8).contiguous(),
+                    mask, p, q)
+        legs_P.append(P)
+        legs_Q.append(Q)
+    f = st.miller_plain(torch.cat(legs_P), torch.cat(legs_Q))
+    prods, fs, at = [], {}, 0
+    for k in FUSED_K:
+        fk = f[at:at + n * k].reshape(n, k, 6, 2, 8)
+        at += n * k
+        fs[k] = st._mask_one(fk, cases[k][2].bool().numpy()).contiguous()
+        prods += [st.gt_product_plain(fk), st.gt_product_plain(fs[k])]
+    gt = st.final_exp_plain(torch.cat(prods))
+    out = {}
+    for i, k in enumerate(FUSED_K):
+        P, Q, mask, p, q = cases[k]
+        out[k] = (P, Q, mask, fs[k], gt[2 * i * n:(2 * i + 1) * n],
+                  gt[(2 * i + 1) * n:(2 * i + 2) * n])
+        # the finite rows against hostmath: unmasked, row 1 has a (0, 0)
+        # leg (outside hostmath's domain); masked, every row
+        host_rows = [hm.pairing_product([(p[r * k + j], q[r * k + j]) for j in range(k)
+                                         if not mask[r, j]]) for r in range(n)]
+        assert tw.decode_fp12(out[k][5]) == host_rows
+        assert [v for r, v in enumerate(tw.decode_fp12(out[k][4])) if r != 1] == [
+            hm.pairing_product([(p[r * k + j], q[r * k + j]) for j in range(k)])
+            for r in (0, 2)]
+    return out
+
+
+@pytest.mark.parametrize("gm,gf", FUSED_LANES)
+def test_pairing_fused_rows_by_lane_groups_match_plain(host, fused_rows, gm, gf):
+    """fts_pairing_product's warp function by a warp of emulated lanes
+    (host_check.h: its barriers real ones, so a missing one between the
+    Miller loops, the product and the final exponentiation fails) at GM
+    lanes a leg and GF a row, on K = 1-4 and 6 with
+    rows past a block's last, an unmasked (0, 0) leg, masked legs and
+    coordinates in [p, 2p): equal to pairing_product_plain bit for bit
+    (hostmath holds the plain results in the fixture), and, at the built
+    variant, to the kernel's host entry."""
+    vals = (ctypes.c_int * 6)()
+    host["pairing_fused_config"](1, vals)
+    built = tuple(vals)[:2] == (gm, gf)
+    for k, (P, Q, mask, _, want, want_masked) in fused_rows.items():
+        n = P.shape[0]
+        for m, expect in ((None, want), (mask, want_masked)):
+            out = torch.zeros((n, 6, 2, 8), dtype=torch.int32)
+            ptr = None if m is None else m.data_ptr()
+            assert host["pairing_product_lanes"](P.data_ptr(), Q.data_ptr(), ptr, out.data_ptr(),
+                                                 n, k, gm, gf) == 0
+            assert torch.equal(out, expect), (k, m is not None)
+            if built:
+                own = torch.zeros_like(out)
+                host["pairing_product"](P.data_ptr(), Q.data_ptr(), ptr, own.data_ptr(), n, k)
+                assert torch.equal(own, expect)
+
+
+@pytest.mark.parametrize("g", TAIL_LANES)
+def test_gt_product_final_exp_rows_by_lane_groups_match_plain(host, fused_rows, g):
+    """fts_gt_product_final_exp's warp function by a warp of emulated
+    lanes at g lanes a row, on the masked Miller values (GT one in the
+    masked legs, a (0, 0) leg's Fp4 value, K = 1-4 and 6, rows past a
+    warp's last): equal to gt_product_final_exp_plain bit for bit, and, at
+    the built g, to the kernel's host entry."""
+    vals = (ctypes.c_int * 6)()
+    host["pairing_fused_config"](1, vals)
+    for k, (_, _, _, f, _, want_masked) in fused_rows.items():
+        n = f.shape[0]
+        assert torch.equal(st.gt_product_final_exp_plain(f), want_masked)
+        out = torch.zeros((n, 6, 2, 8), dtype=torch.int32)
+        assert host["gt_product_final_exp_lanes"](f.data_ptr(), out.data_ptr(), n, k, g) == 0
+        assert torch.equal(out, want_masked), k
+        if g == vals[1]:
+            own = torch.zeros_like(out)
+            host["gt_product_final_exp"](f.data_ptr(), own.data_ptr(), n, k)
+            assert torch.equal(own, want_masked)
+    bad = torch.zeros((1, 6, 2, 8), dtype=torch.int32)
+    assert host["gt_product_final_exp_lanes"](bad.data_ptr(), bad.data_ptr(), 1, 1, 2) == -1
+    assert host["pairing_product_lanes"](bad.data_ptr(), bad.data_ptr(), None, bad.data_ptr(),
+                                         1, 1, 4, 2) == -1
