@@ -15,8 +15,8 @@ batch, with tampered and malformed rows planted:
   proofs run all ten kernels: the G1 ones, G1 to-affine, the G2 ladder,
   add and to-affine, the Miller loop, the GT product and the final
   exponentiation. The batch is 16 copies of the block's 64 distinct
-  transactions (the port has no parse cache, so a copy costs what a
-  distinct row costs).
+  transactions (the batched verifier parses every row, so a copy costs
+  what a distinct row costs).
 
 Verdicts must equal the port's host `TransferVerifier` on every row, and
 every kernel of each path must have been launched by that path's run.
@@ -73,6 +73,23 @@ a block, for the last three, the to-affine kernels and `g1_addsub` the
 blocks an SM; for the to-affine kernels and the adds the time of an
 empty launch on the same grid, `csrc/probe_empty.cu`, and for the adds
 their time by direct launches beside the wrapper's).
+
+Last, the token drivers (`[drivers]`): `ManagementService` and
+`ZKATDLogDriver(pp)` on the card at the headline shape. A 64-tx block
+runs the lifecycle: non-anonymous issues of its 128 inputs from an
+authorized issuer to nym owners, validated by `RequestValidator`; one
+`driver.transfer_many` (a batched-prover group on the card), signed by
+`sign_transfers`; planted faults (two tampered proofs, inputs that
+differ from the ledger's, one input spent in two records, an
+unplannable proof); the orderer's validation: `transfer_batch_plan` on
+every record, one `driver.batch_verifier().verify`, and
+`validate(..., transfer_proofs=...)`, held against `validate` on the
+host. A 1,024-tx backlog mints its inputs directly and runs the same
+path, its verdicts held against `BatchedTransferVerifier` called
+directly. Each `transfer_many` must launch the prove's kernels and each
+verify the 2-in/2-out verify's ten, at the counts the prove and range
+phases plan; validation launches none. It prints the times and the
+host profiler's leg totals.
 
 Phases print one line each. Before the last line come the GPU's name
 and power limit as `nvidia-smi` reports them and one JSON object with
@@ -265,6 +282,323 @@ def bound_ms(products: int, nbytes: int) -> tuple:
     t_ops = products * IMAD_PER_FP_MUL / IMAD_PER_S * 1e3
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
     return (t_ops, "operations") if t_ops >= t_bytes else (t_bytes, "bytes")
+
+
+def drivers_phase(pp, rng, verifier, prove_launches, verify_launches,
+                  block=BLOCK_TXS, backlog=BATCH_TXS, device=None, host_sample=BLOCK_TXS) -> dict:
+    """The token drivers on the card: `ManagementService` and
+    `ZKATDLogDriver(pp, device)` (None: the card) at the headline shape,
+    2-in/2-out, [100, 55] -> [120, 35].
+
+    A `block`-tx block runs the whole lifecycle: non-anonymous issues of
+    its 2 x `block` inputs from an authorized `pk` issuer to nym owners,
+    each validated by `RequestValidator`; one `transfer_many` (one group
+    for the batched prover), signed by `sign_transfers`; planted faults
+    (two tampered proofs, inputs that differ from the ledger's, a
+    request spending one input in two records, a proof that
+    `transfer_batch_plan` cannot plan); then validation as the orderer
+    does it: the plan over every transfer record, one
+    `batch_verifier().verify`, and `validate(..., transfer_proofs=...)`,
+    held against `validate` on the host. A `backlog`-tx backlog mints
+    its inputs directly and runs `transfer_many`, the plan, one verify
+    (held against `verifier`, a `BatchedTransferVerifier` called
+    directly on the same rows) and validation with the verdicts; host
+    validation runs on its planted requests and `host_sample` others.
+    Each `transfer_many` must launch `prove_launches` and each verify
+    `verify_launches`, validation nothing. Returns the times in ms and
+    the profiler's leg totals."""
+    import torch
+
+    from fabric_token_sdk_tpu_torch.api.driver import ValidationError
+    from fabric_token_sdk_tpu_torch.api.request import TokenRequest, TransferRecord
+    from fabric_token_sdk_tpu_torch.api.tms import ManagementService
+    from fabric_token_sdk_tpu_torch.api.wallet import IssuerWallet, OwnerWallet, WalletRegistry
+    from fabric_token_sdk_tpu_torch.crypto import hostmath as hm, sign as sgn
+    from fabric_token_sdk_tpu_torch.crypto import token as tok, transfer as tr
+    from fabric_token_sdk_tpu_torch.crypto import wellformedness as wfm
+    from fabric_token_sdk_tpu_torch.crypto.rangeproof import RangeProof
+    from fabric_token_sdk_tpu_torch.crypto.serialization import dumps, loads
+    from fabric_token_sdk_tpu_torch.drivers.zkatdlog import ZKATDLogDriver
+    from fabric_token_sdk_tpu_torch.models.token import ID
+    from fabric_token_sdk_tpu_torch.ops import _build
+    from fabric_token_sdk_tpu_torch.utils import profiler
+
+    in_vals, out_vals = [100, 55], [120, 35]
+    driver = ZKATDLogDriver(pp, device=device)
+    issuer = IssuerWallet("issuer", sgn.keygen(rng))
+    if issuer.identity not in pp.issuers:
+        pp.add_issuer(issuer.identity)
+    owners = [OwnerWallet(f"owner{i}", anonymous=True, nym_params=pp.nym_params, rng=rng)
+              for i in range(8)]
+    tms = ManagementService(driver, WalletRegistry(owners={w.wallet_id: w for w in owners},
+                                                   issuers={"issuer": issuer}), rng=rng)
+    validator = tms.validator()
+    ms = {}
+
+    def sync():
+        if device is None or torch.device(device).type == "cuda":
+            torch.cuda.synchronize()
+
+    @contextlib.contextmanager
+    def counted(what, expect):
+        """Every count set to 0 just before the block, read just after."""
+        for k in _build.ALL_KERNELS:
+            k.launches = 0
+        yield
+        counts = {k.name: k.launches for k in _build.ALL_KERNELS}
+        if counts != expect:
+            fail(f"[drivers] {what} launched {counts}, expected {expect}")
+
+    def timed(key, fn):
+        t = time.perf_counter()
+        out = fn()
+        sync()
+        ms[key] = (time.perf_counter() - t) * 1e3
+        return out
+
+    def outcome(req, resolve, proofs=None):
+        try:
+            res = validator.validate(req, resolve, transfer_proofs=proofs)
+        except ValidationError as e:
+            return str(e)
+        return [(i.tx_id, i.index) for i in res.spent], res.outputs
+
+    def transfers(specs, tag):
+        """`transfer_many` over the specs, then one signed request each,
+        assembled as `ManagementService.add_transfer` does."""
+        with counted(f"transfer_many of {len(specs)}", prove_launches):
+            made = timed(f"{tag}_transfer_many", lambda: driver.transfer_many(
+                specs, rng=rng, min_batch=1))
+        return [(f"{tag}-xfer{t}", spec, o.action_bytes, o.metadata)
+                for t, (spec, o) in enumerate(zip(specs, made))]
+
+    def bump_wf(action):
+        d = loads(action)
+        p = tr.TransferProof.from_bytes(d["proof"])
+        w = wfm.TransferWF.from_bytes(p.wf)
+        w.sum_resp = (w.sum_resp + 1) % hm.R
+        d["proof"] = tr.TransferProof(w.to_bytes(), p.range_correctness).to_bytes()
+        return dumps(d)
+
+    def bump_membership(action):
+        d = loads(action)
+        p = tr.TransferProof.from_bytes(d["proof"])
+        r = RangeProof.from_bytes(p.range_correctness)
+        r.membership_proofs[1][0].value_resp = (r.membership_proofs[1][0].value_resp + 1) % hm.R
+        d["proof"] = tr.TransferProof(p.wf, r.to_bytes()).to_bytes()
+        return dumps(d)
+
+    def unplannable(action):
+        d = loads(action)
+        d["proof"] = "not proof bytes"
+        return dumps(d)
+
+    def plant_and_sign(made):
+        """Requests over the made transfers with the five faults planted
+        at fixed rows; returns (requests, {row: expected rejection})."""
+        n = len(made)
+        rows = {"wf": 1, "membership": n // 2, "inputs": n // 3, "twice": n - 2,
+                "unplannable": n - 1}
+        expect = {rows["wf"]: "invalid transfer proof", rows["membership"]: "invalid transfer proof",
+                  rows["inputs"]: "transfer inputs do not match ledger state",
+                  rows["twice"]: "request spends the same token twice",
+                  rows["unplannable"]: "invalid transfer proof"}
+        reqs = []
+        for t, (anchor, spec, action, meta) in enumerate(made):
+            ids = list(spec[0])
+            if t == rows["wf"]:
+                action = bump_wf(action)
+            elif t == rows["membership"]:
+                action = bump_membership(action)
+            elif t == rows["unplannable"]:
+                action = unplannable(action)
+            elif t == rows["inputs"]:
+                # the next transfer's ids: the ledger resolves its tokens,
+                # not the ones this action claims (and proves)
+                ids = list(made[t + 1][1][0])
+                d = loads(action)
+                d["ids"] = [[i.tx_id, i.index] for i in ids]
+                action = dumps(d)
+            req = TokenRequest(anchor=anchor)
+            rec = dict(action=action, input_ids=ids,
+                       senders=[driver.output_owner(raw) for raw in spec[1]],
+                       outputs_metadata=meta, receivers=list(spec[5]))
+            req.transfers.append(TransferRecord(**rec))
+            if t == rows["twice"]:
+                req.transfers.append(TransferRecord(**rec))
+            tms.sign_transfers(req)
+            reqs.append(req)
+        return reqs, expect
+
+    def plan_and_verify(reqs, tag):
+        """The orderer's plan over every transfer record and one
+        `batch_verifier().verify` over the planned rows."""
+        plans = []
+        t = time.perf_counter()
+        for ri, req in enumerate(reqs):
+            for k, rec in enumerate(req.transfers):
+                pl = driver.transfer_batch_plan(rec.action)
+                if pl is not None:
+                    plans.append((ri, k, pl))
+        ms[f"{tag}_plan"] = (time.perf_counter() - t) * 1e3
+        if {pl[0] for _, _, pl in plans} != {(2, 2)}:
+            fail(f"[drivers] {tag}: planned shapes {sorted({pl[0] for _, _, pl in plans})}")
+        # the driver builds its verifier on the first call (the block's)
+        bv = timed(f"{tag}_verifier", driver.batch_verifier)
+        with counted(f"batch_verifier().verify of {len(plans)} rows", verify_launches):
+            got = timed(f"{tag}_verify", lambda: bv.verify([pl[1] for _, _, pl in plans]))
+        proofs = {}
+        for (ri, k, _), ok in zip(plans, got.tolist()):
+            proofs.setdefault(ri, {})[k] = bool(ok)
+        return plans, got, proofs
+
+    def validate_all(reqs, resolve, proofs, tag, rows=None):
+        """`validate` on the chosen rows, with the verdicts (`proofs` a
+        dict) or on the host (None), in a profiler window; nothing may
+        launch a kernel."""
+        rows = range(len(reqs)) if rows is None else rows
+        with counted(f"{tag} validation", {k.name: 0 for k in _build.ALL_KERNELS}):
+            with profiler.collect() as legs:
+                out = timed(tag, lambda: {r: outcome(reqs[r], resolve, None if proofs is None
+                                                     else proofs.get(r, {})) for r in rows})
+        ms[f"{tag}_legs"] = {k: v * 1e3 for k, v in sorted(legs.items())}
+        return out
+
+    def check_rejections(tag, verdicts, expect, n):
+        for r in range(n):
+            v = verdicts.get(r)
+            if v is None:
+                continue
+            want = expect.get(r)
+            if want is None and isinstance(v, str):
+                fail(f"[drivers] {tag}: request {r} rejected: {v}")
+            if want is not None and not (isinstance(v, str) and v.startswith(want)):
+                fail(f"[drivers] {tag}: planted request {r} gave {v!r}, expected {want!r}")
+
+    # ---------------------------------------------------- the block
+    t_phase = time.perf_counter()
+    ledger = {}
+    issued = []
+    t = time.perf_counter()
+    issue_reqs = []
+    for t_ in range(block):
+        req = tms.new_request(f"issue{t_}")
+        w = owners[t_ % len(owners)]
+        tms.add_issue(req, issuer, "USD", in_vals, [w.recipient_identity() for _ in in_vals],
+                      anonymous=False)
+        tms.sign_issues(req)
+        issue_reqs.append(req)
+    ms["block_issue"] = (time.perf_counter() - t) * 1e3
+    with profiler.collect() as issue_legs:
+        got = timed("block_issue_validate", lambda: [outcome(r, ledger.__getitem__)
+                                                      for r in issue_reqs])
+    ms["block_issue_validate_legs"] = {k: v * 1e3 for k, v in sorted(issue_legs.items())}
+    for t_, (req, res) in enumerate(zip(issue_reqs, got)):
+        if isinstance(res, str):
+            fail(f"[drivers] issue {t_} rejected: {res}")
+        (_, outputs), = res[1]
+        ids = [ID(req.anchor, k) for k in range(len(outputs))]
+        ledger.update(zip(ids, outputs))
+        issued.append((ids, outputs, req.issues[0].outputs_metadata))
+    specs = []
+    for t_, (ids, outputs, meta) in enumerate(issued):
+        w = owners[(t_ + 1) % len(owners)]
+        specs.append((ids, outputs, meta, "USD", out_vals,
+                      [w.recipient_identity() for _ in out_vals]))
+    reqs, expect = plant_and_sign(transfers(specs, "block"))
+    plans, got, proofs = plan_and_verify(reqs, "block")
+    dev_v = validate_all(reqs, ledger.__getitem__, proofs, "block_validate_verdicts")
+    host_v = validate_all(reqs, ledger.__getitem__, None, "block_validate_host")
+    for r in range(len(reqs)):
+        a, b = dev_v[r], host_v[r]
+        if isinstance(a, str) != isinstance(b, str) or (not isinstance(a, str) and a != b):
+            fail(f"[drivers] block request {r}: with verdicts {a!r}, on the host {b!r}")
+    check_rejections("block with verdicts", dev_v, expect, len(reqs))
+    check_rejections("block on the host", host_v, expect, len(reqs))
+    # the leg that should catch each planted fault
+    by_req = {}
+    for (ri, k, _), ok in zip(plans, got.tolist()):
+        by_req.setdefault(ri, []).append(ok)
+    for r, want in expect.items():
+        oks = by_req.get(r)
+        if want == "invalid transfer proof" and oks is not None and any(oks):
+            fail(f"[drivers] the batched verify accepts the tampered proof of request {r}")
+        if want != "invalid transfer proof" and (oks is None or not all(oks)):
+            fail(f"[drivers] request {r} ({want}) was not planned or its proof was rejected")
+    unplanned = [r for r in expect if r not in by_req]
+    if len(unplanned) != 1 or dev_v[unplanned[0]] != host_v[unplanned[0]]:
+        fail(f"[drivers] unplannable rows {unplanned}")
+    if len(plans) != block or sum(got.tolist()) != block - 2:
+        fail(f"[drivers] block: {len(plans)} planned rows, {int(got.sum())} accepted")
+
+    # ---------------------------------------------------- the backlog
+    t = time.perf_counter()
+    ledger_b = {}
+    specs = []
+    for t_ in range(backlog):
+        coms, wits = tok.tokens_with_witness(in_vals, "USD", pp.ped_params, rng)
+        w = owners[t_ % len(owners)]
+        ids, raws, metas = [], [], []
+        for k, (c, wit) in enumerate(zip(coms, wits)):
+            owner = w.recipient_identity()
+            ids.append(ID(f"mint{t_}", k))
+            raws.append(tok.Token(owner=owner, data=c).to_bytes())
+            metas.append(tok.Metadata("USD", wit.value, wit.bf, owner=owner).to_bytes())
+            ledger_b[ids[-1]] = raws[-1]
+        v = owners[(t_ + 1) % len(owners)]
+        specs.append((ids, raws, metas, "USD", out_vals, [v.recipient_identity() for _ in out_vals]))
+    ms["backlog_mint"] = (time.perf_counter() - t) * 1e3
+    made = transfers(specs, "backlog")
+    t = time.perf_counter()
+    reqs_b, expect_b = plant_and_sign(made)
+    ms["backlog_sign"] = (time.perf_counter() - t) * 1e3
+    plans_b, got_b, proofs_b = plan_and_verify(reqs_b, "backlog")
+    direct = timed("backlog_direct_verify", lambda: verifier.verify([pl[1] for _, _, pl in plans_b]))
+    if direct.tolist() != got_b.tolist():
+        fail("[drivers] the driver's batch verify disagrees with BatchedTransferVerifier called "
+             "directly on the same rows")
+    dev_b = validate_all(reqs_b, ledger_b.__getitem__, proofs_b, "backlog_validate_verdicts")
+    check_rejections("backlog with verdicts", dev_b, expect_b, len(reqs_b))
+    if sum(1 for v in dev_b.values() if isinstance(v, str)) != len(expect_b):
+        fail("[drivers] backlog: the rejected requests are not exactly the planted ones")
+    others = [r for r in range(len(reqs_b)) if r not in expect_b]
+    sample = sorted(expect_b) + sorted(random.Random(rng.getrandbits(64)).sample(
+        others, min(host_sample, len(others))))
+    host_b = validate_all(reqs_b, ledger_b.__getitem__, None, "backlog_validate_host", sample)
+    for r in sample:
+        a, b = dev_b[r], host_b[r]
+        if isinstance(a, str) != isinstance(b, str) or (not isinstance(a, str) and a != b):
+            fail(f"[drivers] backlog request {r}: with verdicts {a!r}, on the host {b!r}")
+    ms["backlog_host_sample"] = len(sample)
+    ms["phase"] = (time.perf_counter() - t_phase) * 1e3
+    return ms
+
+
+def drivers_line(ms: dict, block: int, backlog: int) -> str:
+    """The `[drivers]` phase's times (ms) and profiler leg totals as one line."""
+    def legs(key):
+        return "{" + ", ".join(f"{k} {v:.1f}" for k, v in ms[f"{key}_legs"].items()) + "}"
+
+    return (
+        f"{block}-tx block: issue of {2 * block} inputs ({block} requests, pk issuer to nym "
+        f"owners) {ms['block_issue']:.1f} ms, validated {ms['block_issue_validate']:.1f} ms; "
+        f"transfer_many {ms['block_transfer_many']:.1f} ms; plan {ms['block_plan']:.1f} ms; "
+        f"batch_verifier() {ms['block_verifier']:.1f} ms (built), .verify "
+        f"{ms['block_verify']:.1f} ms; validate with verdicts "
+        f"{ms['block_validate_verdicts']:.1f} ms, without {ms['block_validate_host']:.1f} ms. "
+        f"{backlog}-tx backlog: mint {ms['backlog_mint']:.1f} ms, transfer_many "
+        f"{ms['backlog_transfer_many']:.1f} ms, sign {ms['backlog_sign']:.1f} ms, plan "
+        f"{ms['backlog_plan']:.1f} ms, batch_verifier().verify {ms['backlog_verify']:.1f} ms "
+        f"(BatchedTransferVerifier directly {ms['backlog_direct_verify']:.1f} ms), validate "
+        f"with verdicts {ms['backlog_validate_verdicts']:.1f} ms, without on "
+        f"{ms['backlog_host_sample']} requests {ms['backlog_validate_host']:.1f} ms. Leg totals "
+        f"(ms): issue validation {legs('block_issue_validate')}, block with verdicts "
+        f"{legs('block_validate_verdicts')}, without {legs('block_validate_host')}, backlog "
+        f"with verdicts {legs('backlog_validate_verdicts')}, without "
+        f"{legs('backlog_validate_host')}. Verdicts equal host validation, the planted "
+        f"faults (2 tampered proofs, inputs unlike the ledger's, one input in two records, "
+        f"an unplannable proof) are rejected by their legs at both sizes; phase "
+        f"{ms['phase'] / 1e3:.1f} s")
 
 
 def main() -> int:
@@ -1735,6 +2069,11 @@ def main() -> int:
         f"an unparsable blob) equals the host PublicKey.verify, with and without the mesh; "
         f"launches a call {sign_launches} [{card}]")
 
+    # ---------------------------------------------------------------- drivers
+    drivers_ms = drivers_phase(pp, rng, verifier, PROVE_LAUNCHES, RANGE_LAUNCHES)
+    say("drivers", drivers_line(drivers_ms, BLOCK_TXS, BATCH_TXS) + f"; launches a "
+        f"transfer_many {PROVE_LAUNCHES}, a batch_verifier().verify {RANGE_LAUNCHES}, a "
+        f"validation none [{card}]")
 
     # ---------------------------------------------------------------- report
     kernels = []
@@ -1848,6 +2187,7 @@ def main() -> int:
         "prove_1in1out_median_ms": {str(k): v * 1e3 for k, v in prove_medians_wf.items()},
         "ps_verify_median_ms": {str(k): v * 1e3 for k, v in ps_medians.items()},
         "schnorr_verify_median_ms": {str(k): v * 1e3 for k, v in sign_medians.items()},
+        "drivers_ms": drivers_ms,
         "build_s": t_build}), flush=True)
     print(card, flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)

@@ -9,6 +9,10 @@ types; ours is a cleaner explicit codec, not a byte-compatible one).
 from __future__ import annotations
 
 import json
+import os
+import threading
+from collections import OrderedDict
+from typing import Any, Callable, Optional
 
 from . import hostmath as hm
 
@@ -112,3 +116,90 @@ def dumps(obj: dict) -> bytes:
 
 def loads(raw: bytes) -> dict:
     return _dec(json.loads(raw.decode()))
+
+
+# ------------------------------------------------------------ parse caches
+
+_BYTES_CACHES: list = []
+
+
+class BytesCache:
+    """Bounded LRU raw-bytes -> parsed object for hot READ-ONLY decode
+    paths (serialized actions, tokens): block validation decodes the same
+    bytes several times per tx (plan hooks + validate), and chained
+    transfers re-decode the previous tx's outputs as inputs.
+
+    Cached objects are shared between callers — only use this for decodes
+    whose consumers never mutate the result. Parse failures re-raise on
+    every lookup and are never cached. Every instance shares the
+    `parse.cache.{hits,misses}` counter family; capacity comes lazily
+    from FTS_PARSE_CACHE (default 8192, 0 disables storage and counters)
+    and re-resolves after `clear()`.
+    """
+
+    def __init__(self, parse: Callable[[bytes], Any],
+                 capacity: Optional[int] = None):
+        self._parse = parse
+        self._from_env = capacity is None
+        self._capacity = max(0, capacity) if capacity is not None else None
+        self._entries: "OrderedDict[bytes, Any]" = OrderedDict()
+        self._lock = threading.Lock()
+        _BYTES_CACHES.append(self)
+
+    @property
+    def capacity(self) -> int:
+        if self._capacity is None:
+            try:
+                self._capacity = max(
+                    0, int(os.environ.get("FTS_PARSE_CACHE", "8192"))
+                )
+            except ValueError:
+                self._capacity = 8192
+        return self._capacity
+
+    def lookup(self, raw: bytes) -> Any:
+        if self.capacity == 0:  # disabled: no storage, no counters
+            return self._parse(raw)
+        from ..utils import metrics as _mx
+
+        with self._lock:
+            if raw in self._entries:
+                self._entries.move_to_end(raw)
+                entry = self._entries[raw]
+                hit = True
+            else:
+                hit = False
+        if hit:
+            _mx.counter("parse.cache.hits").inc()
+            return entry
+        _mx.counter("parse.cache.misses").inc()
+        entry = self._parse(raw)  # may raise — never cached
+        with self._lock:
+            self._entries[raw] = entry
+            while len(self._entries) > self.capacity:
+                self._entries.popitem(last=False)
+        return entry
+
+    def clear(self) -> None:
+        with self._lock:
+            self._entries.clear()
+            if self._from_env:
+                self._capacity = None
+
+    def __len__(self) -> int:
+        with self._lock:
+            return len(self._entries)
+
+
+def parse_caches_clear() -> None:
+    """Drop every registered bytes-parse cache (tests)."""
+    for c in _BYTES_CACHES:
+        c.clear()
+
+
+_LOADS_CACHE = BytesCache(loads)
+
+
+def loads_cached(raw: bytes) -> dict:
+    """`loads` through the bounded parse cache — READ-ONLY results."""
+    return _LOADS_CACHE.lookup(raw)

@@ -1,16 +1,17 @@
-"""Metrics core: counters, gauges and span trees in one registry, and
-the flight recorder.
+"""Metrics core: counters, gauges, histograms and span trees in one
+registry, and the flight recorder.
 
 The part of the JAX package's `utils/metrics.py` that the port calls:
-the batched verifiers, the host prover and verifier, the parse cache,
-the native self-checks, the dispatch ledger (`utils/devobs.py`) and the
-mesh plane (`parallel/sharding.py`) keep their instruments under the
-same names. Histograms, trace contexts, heartbeats and the export plane
-come over when a port module needs them.
+the batched verifiers, the host prover and verifier, the parse caches,
+the native self-checks, the dispatch ledger (`utils/devobs.py`), the
+mesh plane (`parallel/sharding.py`) and the host-path profiler
+(`utils/profiler.py`) keep their instruments under the same names.
+Trace contexts, heartbeats and the export plane come over when a port
+module needs them.
 
 * One process-wide thread-safe ``Registry`` (``REGISTRY``) holding named
-  counters and gauges, completed span trees and free-form metadata.
-  Instruments are get-or-create by name.
+  counters, gauges and histograms, completed span trees and free-form
+  metadata. Instruments are get-or-create by name.
 * Counters and gauges are always live. Spans are recorded only after
   ``enable(True)``: the disabled ``span()`` is a single global check.
 * The flight recorder (``FLIGHT`` / ``flight(kind, ...)``) is an
@@ -80,6 +81,42 @@ class Gauge:
         return self._value
 
 
+# Latency buckets sized for this codebase: sub-ms host ops up through
+# multi-minute pairing batches.
+DEFAULT_BUCKETS = (
+    0.001, 0.005, 0.01, 0.05, 0.1, 0.25, 0.5, 1.0, 2.5, 5.0,
+    10.0, 30.0, 60.0, 120.0, 300.0, 600.0,
+)
+
+
+class Histogram:
+    """Counts of observations per latency bucket (`DEFAULT_BUCKETS`
+    plus +Inf). Written by the host-path profiler; its quantiles and
+    export come with the port's export plane."""
+
+    __slots__ = ("name", "buckets", "_counts", "_count", "_lock")
+
+    def __init__(self, name: str):
+        self.name = name
+        self.buckets = DEFAULT_BUCKETS
+        self._counts = [0] * (len(self.buckets) + 1)  # +inf bucket
+        self._count = 0
+        self._lock = threading.Lock()
+
+    def observe(self, v: float) -> None:
+        with self._lock:
+            self._count += 1
+            for i, b in enumerate(self.buckets):
+                if v <= b:
+                    self._counts[i] += 1
+                    return
+            self._counts[-1] += 1
+
+    @property
+    def count(self) -> int:
+        return self._count
+
+
 # ------------------------------------------------------------ span trees
 
 
@@ -135,6 +172,7 @@ class Registry:
         self._lock = threading.Lock()
         self._counters: Dict[str, Counter] = {}
         self._gauges: Dict[str, Gauge] = {}
+        self._histograms: Dict[str, Histogram] = {}
         self._span_roots: List[Span] = []
         self._meta: Dict[str, object] = {}
 
@@ -151,6 +189,13 @@ class Registry:
             with self._lock:
                 g = self._gauges.setdefault(name, Gauge(name))
         return g
+
+    def histogram(self, name: str) -> Histogram:
+        h = self._histograms.get(name)
+        if h is None:
+            with self._lock:
+                h = self._histograms.setdefault(name, Histogram(name))
+        return h
 
     def record_span_root(self, s: Span) -> None:
         with self._lock:
@@ -189,6 +234,7 @@ class Registry:
         with self._lock:
             self._counters.clear()
             self._gauges.clear()
+            self._histograms.clear()
             self._span_roots.clear()
             self._meta.clear()
 
@@ -202,6 +248,10 @@ def counter(name: str) -> Counter:
 
 def gauge(name: str) -> Gauge:
     return REGISTRY.gauge(name)
+
+
+def histogram(name: str) -> Histogram:
+    return REGISTRY.histogram(name)
 
 
 # ------------------------------------------------------------ flight recorder

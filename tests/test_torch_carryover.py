@@ -83,6 +83,46 @@ def test_prover_state_carries_over_from_reference():
     prover.load_state_dict(state)
 
 
+def test_fabtoken_public_params_byte_compatible():
+    from fabric_token_sdk_tpu.drivers.fabtoken import FabTokenPublicParams as RefFabPP
+    from fabric_token_sdk_tpu_torch.drivers.fabtoken import FabTokenPublicParams
+
+    ref = RefFabPP(label="fab", quantity_precision=32, issuers=[b"i1", b"i2"], auditor=b"a")
+    raw = ref.serialize()
+    port = FabTokenPublicParams.deserialize(raw)
+    assert port == FabTokenPublicParams("fab", 32, [b"i1", b"i2"], b"a")
+    assert port.serialize() == raw
+    assert RefFabPP.deserialize(port.serialize()) == ref
+
+
+def test_token_request_wire_format_both_directions():
+    from fabric_token_sdk_tpu.api import request as ref_req
+    from fabric_token_sdk_tpu.models.token import ID as RefID
+    from fabric_token_sdk_tpu_torch.api import request as req
+    from fabric_token_sdk_tpu_torch.models.token import ID
+
+    def build(mod, id_cls):
+        r = mod.TokenRequest(anchor="tx9")
+        r.issues.append(mod.IssueRecord(action=b"issue", issuer=b"me", outputs_metadata=[b"m0"],
+                                        receivers=[b"r0"], signature=b"sig"))
+        r.transfers.append(mod.TransferRecord(action=b"xfer", input_ids=[id_cls("tx8", 1)],
+                                              senders=[b"s"], outputs_metadata=[b"m1", b"m2"],
+                                              receivers=[b"r1", b"r2"], signatures=[b"z"]))
+        r.auditor_signature = b"asig"
+        r.set_application_metadata("k", b"v")
+        return r
+
+    ref, port = build(ref_req, RefID), build(req, ID)
+    raw = port.to_bytes()
+    assert raw == ref.to_bytes()
+    assert port.marshal_to_sign() == ref.marshal_to_sign()
+    assert port.marshal_to_audit() == ref.marshal_to_audit()
+    assert ref_req.TokenRequest.from_bytes(raw).to_bytes() == raw
+    back = req.TokenRequest.from_bytes(ref.to_bytes())
+    assert back.to_bytes() == raw and back.transfers[0].input_ids == [ID("tx8", 1)]
+    assert back.wire_bytes() == raw
+
+
 def test_port_imports_no_jax_and_no_reference_package():
     """Importing every port module leaves jax and fabric_token_sdk_tpu[.*]
     out of sys.modules (the prefix check must not match the port's own
@@ -100,7 +140,10 @@ bad = [m for m in sys.modules
 print(len(names), bad)
 assert not bad, bad
 assert len(names) >= 20, names
-for need in ("parallel.sharding", "crypto.sign", "crypto.batch_sign", "utils.devobs"):
+for need in ("parallel.sharding", "crypto.sign", "crypto.batch_sign", "utils.devobs",
+             "api", "api.tms", "models", "drivers", "drivers.zkatdlog.driver",
+             "drivers.fabtoken.driver", "services.interop", "services.interop.htlc",
+             "utils.profiler"):
     assert port.__name__ + "." + need in names, need
 """
     env = dict(os.environ, PYTHONPATH=os.path.abspath(ROOT))
