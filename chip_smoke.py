@@ -91,6 +91,25 @@ verify the 2-in/2-out verify's ten, at the counts the prove and range
 phases plan; validation launches none. It prints the times and the
 host profiler's leg totals.
 
+Last, the block validation path (`[ledger]`) over the same requests:
+`Network(RequestValidator(ZKATDLogDriver(pp)), BlockPolicy(
+max_block_txs=64), wal_path=...)` with its device left to the card. The
+block's issues through `submit_many`, one with a forged issuer signature
+(their issuer signatures in one `BatchedSchnorrVerifier` call: `g1_msm`,
+`g1_mul`, `g1_addsub`; the forged one rejected by it, the rest valid);
+its transfers with the planted faults and a re-signed copy of an earlier
+transfer in place of a valid one, so that MVCC rejects the later of the
+two (statuses equal validation with the batched verdicts, the spend of
+the forged issue's outputs rejected, exactly the 2-in/2-out verify's
+launches); the backlog from a restored snapshot of
+its minted inputs, through the pipelined engine and again with
+`FTS_BLOCK_PIPELINE=0` (equal statuses, one verify a block); then
+`Network.recover` from the WAL (the same height, statuses and state).
+Any host re-verification of a proof or signature, a failed plane, a
+breaker not closed or a launch count off plan fails it. It prints each step's time, the
+transfer block's cut-to-finality latency and breakdown, and the
+backlog's tx/s pipelined and sequential.
+
 Phases print one line each. Before the last line come the GPU's name
 and power limit as `nvidia-smi` reports them and one JSON object with
 each path kernel's launches, times and bound; the last line is
@@ -195,6 +214,9 @@ PROVE_WF_LAUNCHES = {**{k: 0 for k in PROVE_LAUNCHES}, "g1_msm_select": 1}
 # to-affine, and the K = 2 product
 PS_LAUNCHES = {**{k: 0 for k in PROVE_LAUNCHES}, "g2_mul": 1, "g2_add": 2, "g2_to_affine": 1,
                "miller": 1, "gt_product": 1, "final_exp": 1}
+# a BatchedSchnorrVerifier call (the sign plane, `schnorr_rows`): the
+# 1-base gather multiexp for g^z, the ladder for pk^c, the sub
+SIGN_LAUNCHES = {**{k: 0 for k in PROVE_LAUNCHES}, "g1_msm": 1, "g1_mul": 1, "g1_addsub": 1}
 PROVE_REPS = (5, 3)  # block, batch
 # a scalar whose 4-bit digits are all 15 below a zero top digit: every
 # window of the ladder adds the table's last entry
@@ -285,7 +307,7 @@ def bound_ms(products: int, nbytes: int) -> tuple:
 
 
 def drivers_phase(pp, rng, verifier, prove_launches, verify_launches,
-                  block=BLOCK_TXS, backlog=BATCH_TXS, device=None, host_sample=BLOCK_TXS) -> dict:
+                  block=BLOCK_TXS, backlog=BATCH_TXS, device=None, host_sample=BLOCK_TXS) -> tuple:
     """The token drivers on the card: `ManagementService` and
     `ZKATDLogDriver(pp, device)` (None: the card) at the headline shape,
     2-in/2-out, [100, 55] -> [120, 35].
@@ -306,7 +328,10 @@ def drivers_phase(pp, rng, verifier, prove_launches, verify_launches,
     validation runs on its planted requests and `host_sample` others.
     Each `transfer_many` must launch `prove_launches` and each verify
     `verify_launches`, validation nothing. Returns the times in ms and
-    the profiler's leg totals."""
+    the profiler's leg totals, and what the ledger phase reuses: the
+    management service, the block's issue and transfer requests, the
+    backlog's requests and minted inputs, and the verdicts of validation
+    with the batched verdicts at both sizes."""
     import torch
 
     from fabric_token_sdk_tpu_torch.api.driver import ValidationError
@@ -571,7 +596,8 @@ def drivers_phase(pp, rng, verifier, prove_launches, verify_launches,
             fail(f"[drivers] backlog request {r}: with verdicts {a!r}, on the host {b!r}")
     ms["backlog_host_sample"] = len(sample)
     ms["phase"] = (time.perf_counter() - t_phase) * 1e3
-    return ms
+    return ms, {"tms": tms, "issue_reqs": issue_reqs, "reqs": reqs, "expect": expect,
+                "verdicts": dev_v, "reqs_b": reqs_b, "ledger_b": ledger_b, "verdicts_b": dev_b}
 
 
 def drivers_line(ms: dict, block: int, backlog: int) -> str:
@@ -599,6 +625,246 @@ def drivers_line(ms: dict, block: int, backlog: int) -> str:
         f"faults (2 tampered proofs, inputs unlike the ledger's, one input in two records, "
         f"an unplannable proof) are rejected by their legs at both sizes; phase "
         f"{ms['phase'] / 1e3:.1f} s")
+
+
+def ledger_phase(pp, ctx, verify_launches, sign_launches, block=BLOCK_TXS, device=None) -> dict:
+    """The block validation path on the card: `Network(RequestValidator(
+    ZKATDLogDriver(pp)), BlockPolicy(max_block_txs=block), wal_path=...)`
+    with its device left as None (the card), over the `[drivers]` phase's
+    requests (`ctx`, from `drivers_phase`).
+
+    1. The issue block: the block's issue requests through `submit_many`,
+       one of them forged (its issuer signature is the issuer's
+       signature of another request, so it parses and does not verify):
+       the forged request INVALID with the batched signature plane's
+       message, every other status VALID (as host validation gave); the
+       issuer's pk signatures through the sign plane, one
+       `BatchedSchnorrVerifier` call (`sign_launches`).
+    2. The transfer block: the block's requests with the planted faults,
+       one valid request replaced by a re-signed copy (a new anchor) of
+       an earlier valid one, so that MVCC invalidates the LATER of the
+       two; statuses and messages equal validation with the batched
+       verdicts, the copy "already spent", and the request that spends
+       the forged issue's outputs "does not exist"; exactly
+       `verify_launches`.
+    3. The backlog, twice: its minted inputs enter by `Network.restore` of
+       a snapshot that holds them; `submit_many` of every request through
+       the pipelined engine, then on a fresh restore with
+       `FTS_BLOCK_PIPELINE=0`; statuses equal in both runs and equal the
+       backlog's verdicts; one verify a block.
+    4. Recovery: `Network.recover` from the WAL gives the same height,
+       statuses and state.
+    Any host re-verification (`ledger.block.batch_errors`,
+    `batch.sign.host_fallbacks`, a `*.host_fallback` flight event), a
+    breaker not closed or a launch count other than planned fails the
+    phase. Returns the times (ms) and the transfer block's breakdown."""
+    import tempfile
+
+    from fabric_token_sdk_tpu_torch.api.request import IssueRecord, TokenRequest, TransferRecord
+    from fabric_token_sdk_tpu_torch.api.validator import RequestValidator
+    from fabric_token_sdk_tpu_torch.crypto.serialization import dumps, loads
+    from fabric_token_sdk_tpu_torch.drivers.zkatdlog import ZKATDLogDriver
+    from fabric_token_sdk_tpu_torch.ops import _build
+    from fabric_token_sdk_tpu_torch.services.network import BlockPolicy, Network
+    from fabric_token_sdk_tpu_torch.utils import metrics as mx, resilience
+
+    ms, launches = {}, {}
+    # a ring that holds every event of the phase, so no fallback is evicted
+    mx.FLIGHT = mx.FlightRecorder(capacity=1 << 20)
+    resilience.reset()
+    watched = ("ledger.block.batch_errors", "batch.sign.host_fallbacks", "batch.sign.rows",
+               "batch.sign.batches", "ledger.validate.batched", "ledger.validate.host")
+    base = {k: mx.counter(k).value for k in watched}
+
+    def delta(k):
+        return mx.counter(k).value - base[k]
+
+    @contextlib.contextmanager
+    def counted(key, expect):
+        """Every count set to 0 just before the block, read just after:
+        launches on any thread (the bounded worker, the commit worker)."""
+        for k in _build.ALL_KERNELS:
+            k.launches = 0
+        yield
+        counts = {k.name: k.launches for k in _build.ALL_KERNELS}
+        launches[key] = counts
+        if counts != expect:
+            fail(f"[ledger] {key} launched {counts}, expected {expect}")
+
+    def timed(key, fn):
+        t = time.perf_counter()
+        out = fn()
+        ms[key] = (time.perf_counter() - t) * 1e3
+        return out
+
+    def statuses(events):
+        return [(e.tx_id, e.status.value, e.message) for e in events]
+
+    def expected(reqs, verdicts):
+        """The status each request must end with: its verdict of validation
+        with the batched verdicts in `[drivers]` (a rejection's message,
+        or the outputs of a valid request)."""
+        return [(r.anchor, "Invalid", verdicts[i]) if isinstance(verdicts[i], str)
+                else (r.anchor, "Valid", "") for i, r in enumerate(reqs)]
+
+    t_phase = time.perf_counter()
+    validator = RequestValidator(ZKATDLogDriver(pp, device=device))
+    # the sign plane's auto rule is on for the card; a rehearsal on the CPU
+    # forces it on to drive the same path through the plain versions
+    policy = BlockPolicy(max_block_txs=block, sign_batched=None if device is None else True)
+    tmp = tempfile.TemporaryDirectory()
+    wal_path = os.path.join(tmp.name, "ledger.wal")
+    net = Network(validator, policy, wal_path=wal_path, device=device)
+    if net._engine is None:
+        fail("[ledger] the pipelined engine is off")
+
+    # ---------------------------------------------------- 1. the issue block
+    reqs = list(ctx["reqs"])
+    want = expected(reqs, ctx["verdicts"])
+    free = [r for r in range(len(reqs)) if r not in ctx["expect"]]
+
+    def spends(r):
+        return {i.tx_id for rec in reqs[r].transfers for i in rec.input_ids}
+
+    # the orphan: a valid request that alone names the outputs of one issue,
+    # whose issue is forged below; src and dup come from the rest
+    orphan = next((r for r in free if len(spends(r)) == 1 and not any(
+        spends(r) & spends(q) for q in range(len(reqs)) if q != r)), None)
+    if orphan is None or len(free) < 3:
+        fail(f"[ledger] no request of the block can take the forged issue ({free})")
+    src, dup = [r for r in free if r != orphan][0], [r for r in free if r != orphan][-1]
+    # forge the orphan's issue: the issuer's signature of the next issue
+    # request, over another payload
+    orphan_ids = reqs[orphan].transfers[0].input_ids
+    issue_reqs = list(ctx["issue_reqs"])
+    k = next(i for i, r in enumerate(issue_reqs) if r.anchor == orphan_ids[0].tx_id)
+    genuine = issue_reqs[k].issues[0]
+    forged = TokenRequest(anchor=issue_reqs[k].anchor)
+    forged.issues.append(IssueRecord(
+        action=genuine.action, issuer=genuine.issuer,
+        outputs_metadata=list(genuine.outputs_metadata), receivers=list(genuine.receivers),
+        signature=issue_reqs[(k + 1) % len(issue_reqs)].issues[0].signature))
+    issue_reqs[k] = forged
+    want_issue = [(r.anchor, "Valid", "") for r in issue_reqs]
+    want_issue[k] = (forged.anchor, "Invalid",
+                     "invalid issuer signature: rejected by the batched signature plane")
+    want[orphan] = (reqs[orphan].anchor, "Invalid", f"token {orphan_ids[0]} does not exist")
+    issue_raws = [r.to_bytes() for r in issue_reqs]
+    with counted("issue_block", sign_launches):
+        got = timed("issue_block", lambda: statuses(net.submit_many(issue_raws)))
+    if got != want_issue:
+        bad = [(g, w) for g, w in zip(got, want_issue) if g != w]
+        fail(f"[ledger] issue block: {len(bad)} statuses differ, e.g. {bad[:2]}")
+    if delta("batch.sign.batches") != 1 or delta("batch.sign.rows") != len(issue_raws):
+        fail(f"[ledger] issue block: {delta('batch.sign.batches')} sign-plane calls over "
+             f"{delta('batch.sign.rows')} rows, expected 1 over {len(issue_raws)}")
+    issue_block = dict(net.last_block)
+
+    # ---------------------------------------------------- 2. the transfer block
+    copy = TokenRequest(anchor=f"{reqs[src].anchor}-again")
+    rec = reqs[src].transfers[0]
+    copy.transfers.append(TransferRecord(action=rec.action, input_ids=list(rec.input_ids),
+                                         senders=list(rec.senders),
+                                         outputs_metadata=list(rec.outputs_metadata),
+                                         receivers=list(rec.receivers)))
+    ctx["tms"].sign_transfers(copy)
+    reqs[dup] = copy
+    want[dup] = (copy.anchor, "Invalid", f"token {rec.input_ids[0]} already spent")
+    with counted("transfer_block", verify_launches):
+        got = timed("transfer_block", lambda: statuses(net.submit_many(
+            [r.to_bytes() for r in reqs])))
+    if got != want:
+        bad = [(g, w) for g, w in zip(got, want) if g != w]
+        fail(f"[ledger] transfer block: {len(bad)} statuses differ, e.g. {bad[:2]}")
+    transfer_block = dict(net.last_block)
+    height, snap = net.height(), loads(net.snapshot())
+
+    # ---------------------------------------------------- 3. the backlog, twice
+    n_blocks = -(-len(ctx["reqs_b"]) // block)
+    raws_b = [r.to_bytes() for r in ctx["reqs_b"]]
+    want_b = expected(ctx["reqs_b"], ctx["verdicts_b"])
+    minted = dumps({"state": {i.key(): raw for i, raw in ctx["ledger_b"].items()},
+                    "spent": [], "blocks": [], "status": {}})
+    runs = {}
+    for run, pipelined in (("pipelined", True), ("sequential", False)):
+        old = os.environ.get("FTS_BLOCK_PIPELINE")
+        os.environ["FTS_BLOCK_PIPELINE"] = "1" if pipelined else "0"
+        try:
+            net_b = timed(f"backlog_{run}_restore", lambda: Network.restore(
+                validator, minted, policy=policy, device=device))
+        finally:
+            if old is None:
+                del os.environ["FTS_BLOCK_PIPELINE"]
+            else:
+                os.environ["FTS_BLOCK_PIPELINE"] = old
+        if (net_b._engine is not None) != pipelined:
+            fail(f"[ledger] backlog {run}: engine {net_b._engine}")
+        n_dev = len([e for e in mx.FLIGHT.tail() if e["kind"] == "verify.device"])
+        plan = {k: v * n_blocks for k, v in verify_launches.items()}
+        with counted(f"backlog_{run}", plan):
+            runs[run] = timed(f"backlog_{run}", lambda: statuses(net_b.submit_many(raws_b)))
+        n_dev = len([e for e in mx.FLIGHT.tail() if e["kind"] == "verify.device"]) - n_dev
+        if net_b.height() != n_blocks or n_dev != n_blocks:
+            fail(f"[ledger] backlog {run}: {net_b.height()} blocks, {n_dev} batched verifies, "
+                 f"expected {n_blocks} of each")
+        if runs[run] != want_b:
+            bad = [(g, w) for g, w in zip(runs[run], want_b) if g != w]
+            fail(f"[ledger] backlog {run}: {len(bad)} statuses differ, e.g. {bad[:2]}")
+        ms[f"backlog_{run}_txs_per_s"] = len(raws_b) / (ms[f"backlog_{run}"] / 1e3)
+
+    # ---------------------------------------------------- 4. recovery
+    rec_net = timed("recover", lambda: Network.recover(validator, wal_path, policy=policy,
+                                                       device=device))
+    if rec_net.height() != height or loads(rec_net.snapshot()) != snap:
+        fail("[ledger] recovery from the WAL does not rebuild the same height, statuses and "
+             "state")
+
+    # ---------------------------------------------------- 5. no host re-verification
+    fallbacks = [e for e in mx.FLIGHT.tail()
+                 if e["kind"].endswith((".host_fallback", ".device_error"))]
+    if delta("ledger.block.batch_errors") or delta("batch.sign.host_fallbacks") or fallbacks:
+        fail(f"[ledger] host re-verification: batch_errors "
+             f"{delta('ledger.block.batch_errors')}, sign host_fallbacks "
+             f"{delta('batch.sign.host_fallbacks')}, events {fallbacks[:3]}")
+    states = resilience.breaker_states()
+    if any(v != "closed" for v in states.values()):
+        fail(f"[ledger] breakers {states}")
+    tmp.cleanup()
+    ms.update(phase=(time.perf_counter() - t_phase) * 1e3, blocks_backlog=n_blocks,
+              device=str(net.device),
+              issue_block=dict(ms=ms["issue_block"], commit_s=issue_block["commit_s"],
+                               breakdown=issue_block["breakdown"]),
+              transfer_block_last=dict(commit_s=transfer_block["commit_s"],
+                                       breakdown=transfer_block["breakdown"]),
+              launches=launches, breakers=states, sign_rows=delta("batch.sign.rows"),
+              batched=delta("ledger.validate.batched"), host=delta("ledger.validate.host"))
+    return ms
+
+
+def ledger_line(ms: dict, block: int, backlog: int) -> str:
+    """The `[ledger]` phase's times as one line."""
+    tb = ms["transfer_block_last"]
+    bd = {k: round(v * 1e3, 1) for k, v in tb["breakdown"].items() if v}
+    ib = {k: round(v * 1e3, 1) for k, v in ms["issue_block"]["breakdown"].items() if v}
+    return (
+        f"Network on {ms['device']} at max_block_txs={block}: issue block ({block} requests, "
+        f"one with a forged issuer signature, {ms['sign_rows']} pk signatures in one "
+        f"BatchedSchnorrVerifier call) "
+        f"{ms['issue_block']['ms']:.1f} ms, cut to finality "
+        f"{ms['issue_block']['commit_s'] * 1e3:.1f} ms, breakdown (ms) {ib}; transfer block "
+        f"({block} requests, planted faults, a double spend of an earlier tx and a spend of "
+        f"the forged issue's outputs) "
+        f"{ms['transfer_block']:.1f} ms, cut to finality {tb['commit_s'] * 1e3:.1f} ms, "
+        f"breakdown (ms) {bd}; {backlog}-tx backlog in "
+        f"{ms['blocks_backlog']} blocks from a restored snapshot: pipelined "
+        f"{ms['backlog_pipelined']:.1f} ms ({ms['backlog_pipelined_txs_per_s']:.1f} tx/s), "
+        f"sequential {ms['backlog_sequential']:.1f} ms "
+        f"({ms['backlog_sequential_txs_per_s']:.1f} tx/s), restores "
+        f"{ms['backlog_pipelined_restore']:.1f} / {ms['backlog_sequential_restore']:.1f} ms; "
+        f"recover {ms['recover']:.1f} ms. Statuses equal validation with the batched "
+        f"verdicts, the forged issue and the later double spend rejected, the backlog's runs equal, recovery "
+        f"exact; {ms['batched']} transfer records batched, {ms['host']} on the host; no host "
+        f"re-verification, breakers {ms['breakers']}; phase {ms['phase'] / 1e3:.1f} s")
 
 
 def main() -> int:
@@ -2070,10 +2336,16 @@ def main() -> int:
         f"launches a call {sign_launches} [{card}]")
 
     # ---------------------------------------------------------------- drivers
-    drivers_ms = drivers_phase(pp, rng, verifier, PROVE_LAUNCHES, RANGE_LAUNCHES)
+    drivers_ms, drivers_ctx = drivers_phase(pp, rng, verifier, PROVE_LAUNCHES, RANGE_LAUNCHES)
     say("drivers", drivers_line(drivers_ms, BLOCK_TXS, BATCH_TXS) + f"; launches a "
         f"transfer_many {PROVE_LAUNCHES}, a batch_verifier().verify {RANGE_LAUNCHES}, a "
         f"validation none [{card}]")
+
+    # ---------------------------------------------------------------- ledger
+    ledger_ms = ledger_phase(pp, drivers_ctx, RANGE_LAUNCHES, SIGN_LAUNCHES)
+    say("ledger", ledger_line(ledger_ms, BLOCK_TXS, BATCH_TXS) + f"; launches: issue block "
+        f"{SIGN_LAUNCHES}, transfer block {RANGE_LAUNCHES}, each backlog block the same "
+        f"[{card}]")
 
     # ---------------------------------------------------------------- report
     kernels = []
@@ -2181,6 +2453,11 @@ def main() -> int:
             "share_batch": v[f"{prefix}share"][1],
             "ps_direct_ms": [vp[f"{prefix}direct_ms_block"], vp[f"{prefix}direct_ms_batch"]],
         })
+    # the ledger phase's launches, for the rows that are one kernel each
+    for row in kernels:
+        if row["name"] in ledger_ms["launches"]["transfer_block"]:
+            for key, counts in ledger_ms["launches"].items():
+                row[f"launches_ledger_{key}"] = counts[row["name"]]
     print(json.dumps({
         "range_verify_median_ms": {str(k): v * 1e3 for k, v in range_medians.items()},
         "prove_median_ms": {str(k): v * 1e3 for k, v in prove_medians.items()},
@@ -2188,6 +2465,7 @@ def main() -> int:
         "ps_verify_median_ms": {str(k): v * 1e3 for k, v in ps_medians.items()},
         "schnorr_verify_median_ms": {str(k): v * 1e3 for k, v in sign_medians.items()},
         "drivers_ms": drivers_ms,
+        "ledger_ms": {k: v for k, v in ledger_ms.items() if k != "launches"},
         "build_s": t_build}), flush=True)
     print(card, flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)

@@ -9,18 +9,21 @@ dp/mp placement. Degrade decisions (the fused pairing product's
 `K % mp` bailout) land in the same per-program entry through
 `note_degrade`. It only observes: no result depends on it.
 
+`health_section()` is the `device` section of `Network.health()`: each
+program's dispatches, rows, padding and occupancy, and their totals.
+
 Not ported: the reference's wall-time and occupancy histograms (on the
 card a wrapper returns once its kernel is queued, so a host clock around
-it times the enqueue, not the device), its plane tags, its health
-section and its compile-cache attribution (the port builds its kernels
-once, outside any dispatch, `ops/_build.py`).
+it times the enqueue, not the device), its plane tags and its
+compile-cache attribution (the port builds its kernels once, outside any
+dispatch, `ops/_build.py`).
 """
 
 from __future__ import annotations
 
 import contextlib
 import threading
-from typing import Dict
+from typing import Dict, Optional
 
 _lock = threading.Lock()
 _programs: Dict[str, dict] = {}
@@ -64,3 +67,35 @@ def reset() -> None:
     """Drop all ledger state (registry metrics are untouched)."""
     with _lock:
         _programs.clear()
+
+
+def _occ(rows: int, padded: int) -> Optional[float]:
+    total = rows + padded
+    return round(rows / total, 4) if total else None
+
+
+def health_section() -> dict:
+    """The `device` section of `Network.health()`: per program its
+    dispatches, rows, padded rows, occupancy (rows over rows plus
+    padding), placement and degrades, and the totals over programs."""
+    programs = {}
+    for prog, e in sorted(snapshot().items()):
+        programs[prog] = {
+            "dispatches": e["dispatches"],
+            "rows": e["rows"],
+            "padded_rows": e["padded_rows"],
+            "occupancy": _occ(e["rows"], e["padded_rows"]),
+            "dp": e["dp"],
+            "mp": e["mp"],
+            "degrades": sum(e["degrades"].values()),
+            "degrade_reasons": e["degrades"],
+        }
+    rows = sum(e["rows"] for e in programs.values())
+    padded = sum(e["padded_rows"] for e in programs.values())
+    return {
+        "dispatches": sum(e["dispatches"] for e in programs.values()),
+        "rows": rows,
+        "padded_rows": padded,
+        "occupancy": _occ(rows, padded),
+        "programs": programs,
+    }

@@ -27,10 +27,13 @@ off-path overhead is nil. Cumulative totals (`leg_totals()`) let a
 caller compute what fraction of its host time the named sub-legs
 explain.
 
-Not ported yet: the reference's sampling wall-clock profiler, its
-thread roles and its `FTS_PROF_HZ`/`FTS_PROF_MAX_STACKS` settings. They
-come with their first caller in the port (a bench or the network
-services).
+Thread roles (`set_thread_role`, read by `thread_role`): the block
+pipeline registers its commit worker and its host-batch pool threads as
+`commit-worker` (`services/network/pipeline.py`).
+
+Not ported yet: the reference's sampling wall-clock profiler, which
+reads the roles, and its `FTS_PROF_HZ`/`FTS_PROF_MAX_STACKS` settings.
+They come with their first caller in the port (a bench).
 """
 
 from __future__ import annotations
@@ -38,7 +41,7 @@ from __future__ import annotations
 import contextlib
 import threading
 import time
-from typing import Dict
+from typing import Dict, Optional
 
 from . import metrics as mx
 
@@ -109,3 +112,23 @@ def leg_totals() -> Dict[str, float]:
     collector windows only) — diff two copies around a measured window."""
     with _totals_lock:
         return dict(_totals)
+
+
+# ------------------------------------------------------------ thread roles
+
+_roles: Dict[int, str] = {}
+_roles_lock = threading.Lock()
+
+
+def set_thread_role(role: str) -> None:
+    """Register the CALLING thread's role (commit worker, client). One
+    entry per live thread id, overwritten on reuse."""
+    with _roles_lock:
+        _roles[threading.get_ident()] = role
+
+
+def thread_role(ident: Optional[int] = None) -> Optional[str]:
+    """The role registered for thread `ident` (default: the calling
+    thread), or None."""
+    with _roles_lock:
+        return _roles.get(threading.get_ident() if ident is None else ident)

@@ -143,7 +143,9 @@ assert len(names) >= 20, names
 for need in ("parallel.sharding", "crypto.sign", "crypto.batch_sign", "utils.devobs",
              "api", "api.tms", "models", "drivers", "drivers.zkatdlog.driver",
              "drivers.fabtoken.driver", "services.interop", "services.interop.htlc",
-             "utils.profiler"):
+             "utils.profiler", "services.network", "services.network.orderer",
+             "services.network.pipeline", "services.network.ledger", "services.network.wal",
+             "utils.tracing", "utils.faults", "utils.slo", "utils.resilience"):
     assert port.__name__ + "." + need in names, need
 """
     env = dict(os.environ, PYTHONPATH=os.path.abspath(ROOT))
