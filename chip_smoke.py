@@ -110,6 +110,22 @@ breaker not closed or a launch count off plan fails it. It prints each step's ti
 transfer block's cut-to-finality latency and breakdown, and the
 backlog's tx/s pipelined and sequential.
 
+Last, the token transaction services (`[ttx]`): the quickstart's path
+through `services.ttx` on one `Network(RequestValidator(ZKATDLogDriver(
+pp), auditor), BlockPolicy(max_block_txs=64), wal_path=...)` with an
+`AuditorService` subscribed and `Party`s with crash-safe vaults: a
+16-tx issue block of `Transaction`s (`submit_async`, then `wait`; the
+issuer and auditor signatures in one sign-plane call), a 16-tx transfer
+block of `Transaction.transfer`s proved on the host, one with a tampered
+proof that only the proof plane can reject (the proof plane once, the
+auditor signatures on the sign plane once), a 1,024-tx backlog of
+minted inputs in 16 groups of 64 (each selected by alice's selector and
+proved by one `transfer_many`) through `pipelined_submit` and again
+sequentially, then a redeem, a re-audited replay, an NFT issue and
+transfer, certification, the owner and query views and both vaults
+rebuilt from their journals. Statuses, balances, ttxdb and auditor rows
+and launch counts must be exact, with no host re-verification.
+
 Phases print one line each. Before the last line come the GPU's name
 and power limit as `nvidia-smi` reports them and one JSON object with
 each path kernel's launches, times and bound; the last line is
@@ -225,6 +241,12 @@ LADDER_EDGE_K = 16 ** 63 - 1
 AFFINE_ROUNDS = 8
 LADDERS = ("g1_mul", "g2_mul")  # the window ladder's kernels (csrc/bn254_ladder.cuh)
 PS_SIGS = 64
+TTX_BLOCK = 16  # the [ttx] issue and transfer blocks' transactions
+TTX_GROUPS, TTX_GROUP = 16, 64  # the [ttx] backlog: groups of one transfer_many, a block each
+TTX_HOST_PROVE_BUDGET_S = 60.0  # the [ttx] transfer block's host proofs, at most
+# a [ttx] transfer block: the proof plane once, and the auditor's pk
+# signatures (one a request, at least `sign_min_batch`) on the sign plane once
+TTX_BLOCK_LAUNCHES = {k: RANGE_LAUNCHES[k] + SIGN_LAUNCHES[k] for k in RANGE_LAUNCHES}
 REPLACES = {
     "g1_msm": "fabric_token_sdk_tpu/ops/stages.py:61",
     "g1_mul": "fabric_token_sdk_tpu/ops/curve.py:122",
@@ -864,6 +886,469 @@ def ledger_line(ms: dict, block: int, backlog: int) -> str:
         f"recover {ms['recover']:.1f} ms. Statuses equal validation with the batched "
         f"verdicts, the forged issue and the later double spend rejected, the backlog's runs equal, recovery "
         f"exact; {ms['batched']} transfer records batched, {ms['host']} on the host; no host "
+        f"re-verification, breakers {ms['breakers']}; phase {ms['phase'] / 1e3:.1f} s")
+
+
+def ttx_phase(pp, seed, prove_launches, block_launches, sign_launches, n_block=TTX_BLOCK,
+              groups=TTX_GROUPS, group=TTX_GROUP, device=None) -> dict:
+    """The token transaction services on the card: the quickstart's path
+    through `services.ttx`. One `Network(RequestValidator(ZKATDLogDriver(
+    pp), auditor), BlockPolicy(max_block_txs=max(group, n_block)), wal_path=
+    ...)` with
+    an `AuditorService` subscribed; issuer, alice and bob are `Party`s
+    with crash-safe vaults (`vault_path=`) and drivers of their own,
+    alice and bob anonymous owners (`pp.nym_params`).
+
+    1. The issue block: `n_block` issue `Transaction`s of [100, 55] to
+       alice from a non-anonymous issuer, endorsed by the auditor,
+       `submit_async`ed, then waited on: one block, whose issuer and
+       auditor signatures go through one sign-plane call
+       (`sign_launches`).
+    2. The transfer block: `n_block` `Transaction.transfer`s alice ->
+       bob, each proved on the host, 2-in/2-out by the selector's order
+       (two 100s for [120, 80], then two 55s for [60, 50]); one has its
+       proof tampered before it is endorsed, so that only the proof plane
+       can reject it. One block: the proof plane once and the auditor
+       signatures on the sign plane once (`block_launches`); the tampered
+       one INVALID with the device plane's message, the ttxdb Confirmed /
+       Deleted, the selector empty. Half as many (all of [120, 80]) if
+       the host proofs would take longer than `TTX_HOST_PROVE_BUDGET_S`.
+    3. The backlog: `groups` x `group` 2-in/2-out transfers alice -> bob
+       over 2 x `groups` x `group` minted [100, 55] inputs that enter the
+       network by `Network.restore` of a snapshot and alice's vault by its
+       store's own delta. A group is a builder: inputs by alice's
+       selector, one `transfer_many` (`prove_launches`), the owner's
+       signatures, the audit. Once through `pipelined_submit`, once on a
+       fresh restore with fresh parties as builders then `submit_many`;
+       one block a group (`block_launches`).
+    4. The services: a redeem; a re-audited replay of a committed
+       transfer under a fresh anchor (INVALID, "spent" or "exist"); an NFT
+       issue and transfer; a certification, and the refused certification
+       of a spent token; `OwnerService` and `QueryService` against the
+       sums the phase computed; the auditor's db holding every
+       transaction; alice and bob rebuilt from their vault journals with
+       the same tokens and balances.
+    Any host re-verification, failed plane, open breaker, launch count
+    off plan, or wrong status, balance or row fails the phase. Returns
+    the times (ms), the blocks' breakdowns and the launch counts."""
+    import dataclasses
+    import functools
+    import tempfile
+
+    from fabric_token_sdk_tpu_torch.api.driver import ValidationError
+    from fabric_token_sdk_tpu_torch.api.validator import RequestValidator
+    from fabric_token_sdk_tpu_torch.api.wallet import AuditorWallet
+    from fabric_token_sdk_tpu_torch.crypto import hostmath as hm, sign as sgn
+    from fabric_token_sdk_tpu_torch.crypto import token as tok, transfer as tr
+    from fabric_token_sdk_tpu_torch.crypto.rangeproof import RangeProof
+    from fabric_token_sdk_tpu_torch.crypto.serialization import dumps, loads
+    from fabric_token_sdk_tpu_torch.drivers.zkatdlog import ZKATDLogDriver
+    from fabric_token_sdk_tpu_torch.models.token import ID
+    from fabric_token_sdk_tpu_torch.ops import _build
+    from fabric_token_sdk_tpu_torch.services.auditor import AuditorService
+    from fabric_token_sdk_tpu_torch.services.certifier import CertificationService
+    from fabric_token_sdk_tpu_torch.services.network import BlockPolicy, Network
+    from fabric_token_sdk_tpu_torch.services.nfttx import NFTService
+    from fabric_token_sdk_tpu_torch.services.owner import OwnerService
+    from fabric_token_sdk_tpu_torch.services.query import QueryService
+    from fabric_token_sdk_tpu_torch.services.ttx import Party, Transaction, pipelined_submit
+    from fabric_token_sdk_tpu_torch.services.vault import VaultDelta
+    from fabric_token_sdk_tpu_torch.services.vault.store import decoded_token
+    from fabric_token_sdk_tpu_torch.utils import metrics as mx, resilience
+
+    ms, launches, rng = {}, {}, random.Random(seed)
+    # a ring that holds every event of the phase, so no fallback is evicted
+    mx.FLIGHT = mx.FlightRecorder(capacity=1 << 20)
+    resilience.reset()
+    watched = ("ledger.block.batch_errors", "batch.sign.host_fallbacks", "batch.sign.rows",
+               "batch.sign.batches", "ledger.validate.batched", "ledger.validate.host")
+    base = {k: mx.counter(k).value for k in watched}
+
+    def delta(k):
+        return mx.counter(k).value - base[k]
+
+    def zero():
+        for k in _build.ALL_KERNELS:
+            k.launches = 0
+
+    def read(key, expect):
+        counts = {k.name: k.launches for k in _build.ALL_KERNELS}
+        launches[key] = counts
+        if counts != expect:
+            fail(f"[ttx] {key} launched {counts}, expected {expect}")
+
+    @contextlib.contextmanager
+    def counted(key, expect):
+        """Every count set to 0 just before the block, read just after:
+        launches on any thread (the bounded worker, the commit worker)."""
+        zero()
+        yield
+        read(key, expect)
+
+    def timed(key, fn):
+        t = time.perf_counter()
+        out = fn()
+        ms[key] = (time.perf_counter() - t) * 1e3
+        return out
+
+    def times(plan, n):
+        return {k: v * n for k, v in plan.items()}
+
+    def plus(*plans):
+        return {k: sum(p[k] for p in plans) for k in plans[0]}
+
+    def bump_membership(action):
+        d = loads(action)
+        p = tr.TransferProof.from_bytes(d["proof"])
+        r = RangeProof.from_bytes(p.range_correctness)
+        r.membership_proofs[1][0].value_resp = (r.membership_proofs[1][0].value_resp + 1) % hm.R
+        d["proof"] = tr.TransferProof(p.wf, r.to_bytes()).to_bytes()
+        return dumps(d)
+
+    def statuses(txs):
+        """Each transaction's finality by `wait()`: a rejection raises
+        `ValidationError` with the ledger's message."""
+        out = []
+        for tx in txs:
+            try:
+                e = tx.wait()
+                out.append((tx.tx_id, e.status.value, e.message))
+            except ValidationError as e:
+                out.append((tx.tx_id, "Invalid", str(e)))
+        return out
+
+    t_phase = time.perf_counter()
+    tmp = tempfile.TemporaryDirectory()
+    path = functools.partial(os.path.join, tmp.name)
+    aw = AuditorWallet("auditor", sgn.keygen(rng))
+    auditor = AuditorService(ZKATDLogDriver(pp, device=device), aw)
+    # the sign plane's auto rule is on for the card; a rehearsal on the CPU
+    # forces it on to drive the same path through the plain versions
+    policy = BlockPolicy(max_block_txs=max(group, n_block),
+                         sign_batched=None if device is None else True)
+    validator = RequestValidator(ZKATDLogDriver(pp, device=device), aw.identity)
+    net = Network(validator, policy, wal_path=path("ledger.wal"), device=device)
+    net.subscribe(auditor.on_finality)
+
+    def party(name, network, vault_path):
+        return Party(name, ZKATDLogDriver(pp, device=device), network,
+                     auditor_identity=aw.identity, rng=rng, vault_path=vault_path)
+
+    issuer_p, alice_p, bob_p = (party(n, net, path(f"{n}.vault"))
+                                for n in ("issuer", "alice", "bob"))
+    issuer = issuer_p.new_issuer_wallet("issuer")
+    pp.add_issuer(issuer.identity)
+    alice = alice_p.new_owner_wallet("alice", anonymous=True, nym_params=pp.nym_params)
+    bob = bob_p.new_owner_wallet("bob", anonymous=True, nym_params=pp.nym_params)
+    audited = {}  # tx id -> the status the auditor's db must end with
+
+    # ---------------------------------------------------- 1. the issue block
+    in_vals = [100, 55]
+    issues = []
+    t = time.perf_counter()
+    for i in range(n_block):
+        tx = Transaction(issuer_p, f"ttx-issue{i}")
+        tx.issue("issuer", "USD", in_vals, [alice.recipient_identity() for _ in in_vals],
+                 anonymous=False)
+        tx.collect_endorsements(auditor)
+        issues.append(tx)
+    ms["issue_assemble"] = (time.perf_counter() - t) * 1e3
+    with counted("issue_block", sign_launches):
+        t = time.perf_counter()
+        for tx in issues:
+            tx.submit_async()
+        got = statuses(issues)
+        ms["issue_block"] = (time.perf_counter() - t) * 1e3
+    if got != [(tx.tx_id, "Valid", "") for tx in issues] or net.height() != 1:
+        fail(f"[ttx] issue block: {got[:2]}, height {net.height()}")
+    if delta("batch.sign.batches") != 1 or delta("batch.sign.rows") != 2 * n_block:
+        fail(f"[ttx] issue block: {delta('batch.sign.batches')} sign-plane calls over "
+             f"{delta('batch.sign.rows')} rows, expected 1 over {2 * n_block}")
+    audited.update((tx.tx_id, "Confirmed") for tx in issues)
+    issue_block = dict(net.last_block)
+    want_alice = n_block * sum(in_vals)
+    if alice_p.balance("USD") != want_alice:
+        fail(f"[ttx] alice holds {alice_p.balance('USD')} after the issues, not {want_alice}")
+
+    # ---------------------------------------------------- 2. the transfer block
+    half = n_block // 2
+
+    def shape(i):  # by the selector's order: two 100s, then two 55s
+        return [120, 80] if i < half else [60, 50]
+
+    def host_transfer(i):
+        tx = Transaction(alice_p, f"ttx-pay{i}")
+        tx.transfer("alice", "USD", shape(i), [bob.recipient_identity() for _ in range(2)])
+        return tx
+
+    t = time.perf_counter()
+    pays = [host_transfer(0)]
+    ms["host_prove_transaction"] = (time.perf_counter() - t) * 1e3
+    ms["transfer_block_predicted_s"] = ms["host_prove_transaction"] * n_block / 1e3
+    if ms["transfer_block_predicted_s"] > TTX_HOST_PROVE_BUDGET_S:
+        n_block = half  # the 100s alone: [120, 80] each
+    pays += [host_transfer(i) for i in range(1, n_block)]
+    ms["transfer_assemble"] = (time.perf_counter() - t) * 1e3
+    ms["transfer_block_txs"] = n_block
+    planted = min(3, n_block - 1)
+    rec = pays[planted].request.transfers[0]
+    rec.action = bump_membership(rec.action)
+    for tx in pays:
+        tx.collect_endorsements(auditor)
+    if any(len(tx.request.transfers[0].input_ids) != 2
+           or len(loads(tx.request.transfers[0].action)["outputs"]) != 2 for tx in pays):
+        fail("[ttx] a transfer of the block is not 2-in/2-out")
+    with counted("transfer_block", block_launches):
+        t = time.perf_counter()
+        for tx in pays:
+            tx.submit_async()
+        got = statuses(pays)
+        ms["transfer_block"] = (time.perf_counter() - t) * 1e3
+    want = [(tx.tx_id, "Valid", "") for tx in pays]
+    want[planted] = (pays[planted].tx_id, "Invalid",
+                     f"tx {pays[planted].tx_id} rejected: invalid transfer proof")
+    if got != want or net.height() != 2:
+        bad = [(g, w) for g, w in zip(got, want) if g != w]
+        fail(f"[ttx] transfer block: {len(bad)} statuses differ, e.g. {bad[:2]}; "
+             f"height {net.height()}")
+    transfer_block = dict(net.last_block)
+    sent = sum(sum(shape(i)) for i in range(n_block) if i != planted)
+    for tx in pays:
+        st = "Deleted" if tx is pays[planted] else "Confirmed"
+        audited[tx.tx_id] = st
+        if alice_p.db.status(tx.tx_id) != st:
+            fail(f"[ttx] alice's ttxdb has {tx.tx_id} {alice_p.db.status(tx.tx_id)}, not {st}")
+    if (alice_p.balance("USD"), bob_p.balance("USD")) != (want_alice - sent, sent):
+        fail(f"[ttx] balances after the transfer block: alice {alice_p.balance('USD')}, bob "
+             f"{bob_p.balance('USD')}, expected {want_alice - sent}, {sent}")
+    if alice_p.selectors.locker.locked_count():
+        fail(f"[ttx] the selector holds {alice_p.selectors.locker.locked_count()} tokens")
+
+    # ---------------------------------------------------- 3. the backlog, twice
+    n_mint = groups * group
+    t = time.perf_counter()
+    minted, stores = {}, []
+    opener = ZKATDLogDriver(pp, device=device)
+    for m in range(n_mint):
+        coms, wits = tok.tokens_with_witness(in_vals, "USD", pp.ped_params, rng)
+        owner = alice.recipient_identity()
+        for k, (c, wit) in enumerate(zip(coms, wits)):
+            raw = tok.Token(owner=owner, data=c).to_bytes()
+            meta = tok.Metadata("USD", wit.value, wit.bf, owner=owner).to_bytes()
+            minted[ID(f"mint{m}", k).key()] = raw
+            stores.append(decoded_token(opener.output_to_unspent, ID(f"mint{m}", k), raw, meta))
+    snapshot = dumps({"state": minted, "spent": [], "blocks": [], "status": {}})
+    ms["backlog_mint"] = (time.perf_counter() - t) * 1e3
+    if any(st.decoded is None for st in stores):
+        fail("[ttx] a minted token does not open")
+
+    def values_of(g):  # the 100s first, then the 55s (the selector's order)
+        return [120, 80] if g < groups // 2 else [60, 50]
+
+    def builder(owner_p, tag, g):
+        """Group g: `Transaction.transfer_group` (each transaction's inputs
+        by the owner's selector, one `transfer_many` for the group, the
+        owner's signatures and the audit); every selection must take two
+        inputs and give no change."""
+        values = values_of(g)
+
+        def build():
+            txs = Transaction.transfer_group(owner_p, "alice", "USD", [
+                (f"{tag}-g{g}-{j}", values, [bob.recipient_identity() for _ in values])
+                for j in range(group)], auditor, rng)
+            for tx in txs:
+                rec = tx.request.transfers[0]
+                if len(rec.input_ids) != 2 or len(rec.receivers) != len(values):
+                    fail(f"[ttx] {tx.tx_id} took {len(rec.input_ids)} inputs for "
+                         f"{len(rec.receivers)} outputs")
+            return [tx.request.to_bytes() for tx in txs]
+
+        return build
+
+    def time_proving(owner_p, tag):
+        """Time the party driver's `transfer_many` calls into
+        ms["backlog_<tag>_transfer_many"]."""
+        prove = owner_p.driver.transfer_many
+
+        def timed_prove(*args, **kwargs):
+            t = time.perf_counter()
+            out = prove(*args, **kwargs)
+            ms.setdefault(f"backlog_{tag}_transfer_many", []).append(
+                (time.perf_counter() - t) * 1e3)
+            return out
+
+        owner_p.driver.transfer_many = timed_prove
+
+    backlog = {}
+    moved = sum(sum(values_of(g)) for g in range(groups)) * group
+    for run in ("pipelined", "sequential"):
+        net_b = timed(f"backlog_{run}_restore", lambda: Network.restore(
+            validator, snapshot, policy=policy, device=device))
+        net_b.subscribe(auditor.on_finality)
+        a_b = party("alice", net_b, path(f"alice-{run}.vault"))
+        b_b = party("bob", net_b, path(f"bob-{run}.vault"))
+        a_b.wallets.owners["alice"] = alice
+        b_b.wallets.owners["bob"] = bob
+        a_b.vault.store.apply(VaultDelta("mint", stores=stores))
+        time_proving(a_b, run[0])
+        builders = [builder(a_b, run[0], g) for g in range(groups)]
+        n_dev = len([e for e in mx.FLIGHT.tail() if e["kind"] == "verify.device"])
+        plan = times(plus(prove_launches, block_launches), groups)
+        if run == "pipelined":
+            mx.gauge("ttx.pipeline.overlap_frac").set(-1.0)
+            zero()
+            t = time.perf_counter()
+            results = pipelined_submit(net_b, builders)
+            ms["backlog_pipelined"] = (time.perf_counter() - t) * 1e3
+            read("backlog_pipelined", plan)
+            ms["overlap_frac"] = mx.gauge("ttx.pipeline.overlap_frac").value
+        else:
+            results, t = [], time.perf_counter()
+            for g, build in enumerate(builders):
+                with counted(f"backlog_sequential_group{g}", prove_launches):
+                    raws = build()
+                with counted(f"backlog_sequential_block{g}", block_launches):
+                    results.append(net_b.submit_many(raws))
+            ms["backlog_sequential"] = (time.perf_counter() - t) * 1e3
+        n_dev = len([e for e in mx.FLIGHT.tail() if e["kind"] == "verify.device"]) - n_dev
+        got = [(e.tx_id, e.status.value) for evs in results for e in evs]
+        want = [(f"{run[0]}-g{g}-{j}", "Valid") for g in range(groups) for j in range(group)]
+        if got != want or net_b.height() != groups or n_dev != groups:
+            bad = [(x, y) for x, y in zip(got, want) if x != y]
+            fail(f"[ttx] backlog {run}: {len(bad)} statuses differ ({bad[:2]}), "
+                 f"{net_b.height()} blocks, {n_dev} batched verifies, expected {groups}")
+        if (a_b.balance("USD"), b_b.balance("USD")) != (n_mint * sum(in_vals) - moved, moved):
+            fail(f"[ttx] backlog {run}: balances {a_b.balance('USD')}, {b_b.balance('USD')}")
+        if a_b.selectors.locker.locked_count() or any(
+                a_b.db.status(tx) != "Confirmed" for tx, _ in want):
+            fail(f"[ttx] backlog {run}: a token stays locked or a ttxdb row is not Confirmed")
+        audited.update((tx, "Confirmed") for tx, _ in want)
+        ms[f"backlog_{run}_txs_per_s"] = len(want) / (ms[f"backlog_{run}"] / 1e3)
+        backlog[run] = dict(commit_s=net_b.last_block["commit_s"],
+                            breakdown=net_b.last_block["breakdown"])
+        for p in (a_b, b_b):
+            p.vault.store.close()
+
+    # ---------------------------------------------------- 4. services, recovery
+    t = time.perf_counter()
+    redeem = Transaction(alice_p, "ttx-redeem")
+    redeem.redeem("alice", "USD", 50)
+    redeem.collect_endorsements(auditor)
+    if redeem.submit().status.value != "Valid":
+        fail("[ttx] the redeem was rejected")
+    audited["ttx-redeem"] = "Confirmed"
+    replay = dataclasses.replace(pays[0].request, anchor="ttx-replay")
+    auditor.audit(replay)
+    ev = net.submit(replay.to_bytes())
+    if ev.status.value != "Invalid" or not ("spent" in ev.message or "exist" in ev.message):
+        fail(f"[ttx] the re-audited replay gave {ev.status.value} {ev.message!r}")
+    audited["ttx-replay"] = "Deleted"
+    state = {"artist": "banksy", "work": "ttx smoke"}
+    nft_type = NFTService(issuer_p).issue("issuer", state, alice.recipient_identity(), auditor,
+                                          tx_id="ttx-nft-issue")
+    if NFTService(alice_p).my_nfts() != [nft_type] or not NFTService(alice_p).state_matches(
+            nft_type, state):
+        fail("[ttx] alice does not hold the NFT")
+    NFTService(alice_p).transfer("alice", nft_type, bob.recipient_identity(), auditor,
+                                 tx_id="ttx-nft-xfer")
+    if NFTService(alice_p).my_nfts() or NFTService(bob_p).my_nfts() != [nft_type]:
+        fail("[ttx] the NFT did not move to bob")
+    audited.update({"ttx-nft-issue": "Confirmed", "ttx-nft-xfer": "Confirmed"})
+    certifier = CertificationService(net, rng=rng)
+    bob_tok = next(i for i in bob_p.vault.token_ids() if i.tx_id.startswith("ttx-pay"))
+    certifier.certify_into(bob_p.vault, bob_tok)
+    certifier.verify(bob_tok, net.resolve_input(bob_tok), bob_p.vault.certification(bob_tok))
+    try:
+        certifier.certify(pays[0].request.transfers[0].input_ids[0])
+        fail("[ttx] a spent token was certified")
+    except ValidationError:
+        pass
+    alice_usd = want_alice - sent - 50
+    owner_a, owner_b = OwnerService(alice_p.db), OwnerService(bob_p.db)
+    checks = {
+        "alice's payments": (owner_a.payments("alice", "USD"), sent + 50),
+        "alice's holdings": (owner_a.holdings("alice", "USD"), alice_usd),
+        "bob's holdings": (owner_b.holdings("bob", "USD"), sent),
+        "alice's confirmed history": (len(owner_a.history("Confirmed")), n_block - 1 + 2),
+        "alice's deleted history": ([r.tx_id for r in owner_a.history("Deleted")],
+                                    [pays[planted].tx_id]),
+        "alice's balances": (QueryService(alice_p.vault).balances_by_type(), {"USD": alice_usd}),
+        "bob's balances": (QueryService(bob_p.vault).balances_by_type(),
+                           {"USD": sent, nft_type: 1}),
+        "the auditor's db": ({tx: auditor.db.status(tx) for tx in audited}, audited),
+    }
+    for what, (got_, want_) in checks.items():
+        if got_ != want_:
+            fail(f"[ttx] {what}: {str(got_)[:300]} != {str(want_)[:300]}")
+    if len(auditor.db.transactions()) != len(audited):
+        fail(f"[ttx] the auditor's db holds {len(auditor.db.transactions())} transactions, "
+             f"not {len(audited)}")
+    held = {}
+    for name, p in (("alice", alice_p), ("bob", bob_p)):
+        held[name] = (sorted(i.key() for i in p.vault.token_ids()), p.vault.balance("USD"))
+        p.vault.store.close()
+    for name in held:
+        p = party(name, net, path(f"{name}.vault"))
+        again = (sorted(i.key() for i in p.vault.token_ids()), p.vault.balance("USD"))
+        if again != held[name]:
+            fail(f"[ttx] {name} rebuilt from the vault journal holds {again[1]} in "
+                 f"{len(again[0])} tokens, not {held[name][1]} in {len(held[name][0])}")
+        p.vault.store.close()
+    ms["services"] = (time.perf_counter() - t) * 1e3
+
+    # ---------------------------------------------------- 5. no host re-verification
+    fallbacks = [e for e in mx.FLIGHT.tail()
+                 if e["kind"].endswith((".host_fallback", ".device_error"))]
+    if delta("ledger.block.batch_errors") or delta("batch.sign.host_fallbacks") or fallbacks:
+        fail(f"[ttx] host re-verification: batch_errors {delta('ledger.block.batch_errors')}, "
+             f"sign host_fallbacks {delta('batch.sign.host_fallbacks')}, events {fallbacks[:3]}")
+    states = resilience.breaker_states()
+    if any(v != "closed" for v in states.values()):
+        fail(f"[ttx] breakers {states}")
+    tmp.cleanup()
+    ms.update(phase=(time.perf_counter() - t_phase) * 1e3, device=str(net.device),
+              issue_block_last=dict(commit_s=issue_block["commit_s"],
+                                    breakdown=issue_block["breakdown"]),
+              transfer_block_last=dict(commit_s=transfer_block["commit_s"],
+                                       breakdown=transfer_block["breakdown"]),
+              backlog_last=backlog, launches=launches, breakers=states,
+              sign_rows=delta("batch.sign.rows"), batched=delta("ledger.validate.batched"),
+              host=delta("ledger.validate.host"), groups=groups, group=group,
+              issue_block_txs=len(issues))
+    return ms
+
+
+def ttx_line(ms: dict) -> str:
+    """The `[ttx]` phase's times as one line."""
+    def bd(block):
+        return {k: round(v * 1e3, 1) for k, v in block["breakdown"].items() if v}
+
+    n = ms["groups"] * ms["group"]
+    tm = ms.get("backlog_p_transfer_many", [])
+    return (
+        f"Party/Transaction on {ms['device']}: issue block ({ms['issue_block_txs']} issue "
+        f"Transactions, submit_async then wait) {ms['issue_block']:.1f} ms (assembly with the "
+        f"host issue proofs {ms['issue_assemble']:.1f} ms), cut to finality "
+        f"{ms['issue_block_last']['commit_s'] * 1e3:.1f} ms, breakdown (ms) "
+        f"{bd(ms['issue_block_last'])}; host prove a Transaction.transfer "
+        f"{ms['host_prove_transaction']:.1f} ms (the block's {ms['transfer_block_txs']} predicted "
+        f"{ms['transfer_block_predicted_s']:.1f} s, took {ms['transfer_assemble'] / 1e3:.1f} s); "
+        f"transfer block ({ms['transfer_block_txs']} 2-in/2-out, one tampered proof) "
+        f"{ms['transfer_block']:.1f} ms, cut to finality "
+        f"{ms['transfer_block_last']['commit_s'] * 1e3:.1f} ms, breakdown (ms) "
+        f"{bd(ms['transfer_block_last'])}; {n}-tx backlog in {ms['groups']} groups of "
+        f"{ms['group']} (selector, one transfer_many, signatures, audit; mint "
+        f"{ms['backlog_mint']:.1f} ms): pipelined_submit {ms['backlog_pipelined']:.1f} ms "
+        f"({ms['backlog_pipelined_txs_per_s']:.1f} tx/s, ttx.pipeline.overlap_frac "
+        f"{ms['overlap_frac']}, transfer_many {statistics.median(tm) if tm else 0:.1f} ms a "
+        f"group), sequential {ms['backlog_sequential']:.1f} ms "
+        f"({ms['backlog_sequential_txs_per_s']:.1f} tx/s), last block breakdown (ms) "
+        f"pipelined {bd(ms['backlog_last']['pipelined'])} sequential "
+        f"{bd(ms['backlog_last']['sequential'])}; services (redeem, replay, NFT, "
+        f"certification, owner and query views, vault rebuilds) {ms['services']:.1f} ms. "
+        f"Statuses, balances, ttxdb and auditor rows and the rebuilt vaults exact; "
+        f"{ms['batched']} transfer records batched, {ms['host']} on the host (lone submits, "
+        f"by policy), {ms['sign_rows']} pk signatures on the sign plane; no host "
         f"re-verification, breakers {ms['breakers']}; phase {ms['phase'] / 1e3:.1f} s")
 
 
@@ -2347,6 +2832,11 @@ def main() -> int:
         f"{SIGN_LAUNCHES}, transfer block {RANGE_LAUNCHES}, each backlog block the same "
         f"[{card}]")
 
+    # ---------------------------------------------------------------- ttx
+    ttx_ms = ttx_phase(pp, args.seed + 13, PROVE_LAUNCHES, TTX_BLOCK_LAUNCHES, SIGN_LAUNCHES)
+    say("ttx", ttx_line(ttx_ms) + f"; launches: issue block {SIGN_LAUNCHES}, transfer block and "
+        f"each backlog block {TTX_BLOCK_LAUNCHES}, each transfer_many {PROVE_LAUNCHES} [{card}]")
+
     # ---------------------------------------------------------------- report
     kernels = []
     big, small = BATCH_TXS * ROWS_PER_TX, BLOCK_TXS * ROWS_PER_TX
@@ -2453,11 +2943,14 @@ def main() -> int:
             "share_batch": v[f"{prefix}share"][1],
             "ps_direct_ms": [vp[f"{prefix}direct_ms_block"], vp[f"{prefix}direct_ms_batch"]],
         })
-    # the ledger phase's launches, for the rows that are one kernel each
+    # the ledger and ttx phases' launches, for the rows that are one kernel each
     for row in kernels:
         if row["name"] in ledger_ms["launches"]["transfer_block"]:
             for key, counts in ledger_ms["launches"].items():
                 row[f"launches_ledger_{key}"] = counts[row["name"]]
+            for key in ("issue_block", "transfer_block", "backlog_pipelined",
+                        "backlog_sequential_group0", "backlog_sequential_block0"):
+                row[f"launches_ttx_{key}"] = ttx_ms["launches"][key][row["name"]]
     print(json.dumps({
         "range_verify_median_ms": {str(k): v * 1e3 for k, v in range_medians.items()},
         "prove_median_ms": {str(k): v * 1e3 for k, v in prove_medians.items()},
@@ -2466,6 +2959,7 @@ def main() -> int:
         "schnorr_verify_median_ms": {str(k): v * 1e3 for k, v in sign_medians.items()},
         "drivers_ms": drivers_ms,
         "ledger_ms": {k: v for k, v in ledger_ms.items() if k != "launches"},
+        "ttx_ms": {k: v for k, v in ttx_ms.items() if k != "launches"},
         "build_s": t_build}), flush=True)
     print(card, flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)

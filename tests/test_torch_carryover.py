@@ -1,6 +1,7 @@
 """PyTorch port, what carries across packages: byte-identical proofs
-from one seed, cross-package host verification, public parameters, and
-the port's import boundary (no jax, nothing of the JAX package)."""
+from one seed, cross-package host verification, public parameters, the
+port's import boundary (no jax, nothing of the JAX package, the token
+services included), and where a `Party` and its `Network` run."""
 
 import os
 import random
@@ -145,7 +146,14 @@ for need in ("parallel.sharding", "crypto.sign", "crypto.batch_sign", "utils.dev
              "drivers.fabtoken.driver", "services.interop", "services.interop.htlc",
              "utils.profiler", "services.network", "services.network.orderer",
              "services.network.pipeline", "services.network.ledger", "services.network.wal",
-             "utils.tracing", "utils.faults", "utils.slo", "utils.resilience"):
+             "utils.tracing", "utils.faults", "utils.slo", "utils.resilience",
+             "services.ttx", "services.ttx.party", "services.ttx.transaction",
+             "services.ttx.pipeline", "services.vault", "services.vault.store",
+             "services.vault.vault", "services.selector", "services.selector.selector",
+             "services.ttxdb", "services.ttxdb.db", "services.auditor",
+             "services.auditor.auditor", "services.owner", "services.owner.owner",
+             "services.query", "services.query.query", "services.certifier",
+             "services.certifier.certifier", "services.nfttx", "services.nfttx.nft"):
     assert port.__name__ + "." + need in names, need
 """
     env = dict(os.environ, PYTHONPATH=os.path.abspath(ROOT))
@@ -159,3 +167,54 @@ def test_chip_smoke_imports_no_jax():
     assert "import jax" not in src and "from jax" not in src
     assert "fabric_token_sdk_tpu." not in src.replace("fabric_token_sdk_tpu_torch", "")
     assert "fabric_token_sdk_tpu " not in src.replace("fabric_token_sdk_tpu_torch", "")
+
+
+def test_party_network_on_the_cpu_never_touch_cuda(monkeypatch):
+    """A port `Network(device="cpu")` with parties whose zkatdlog drivers
+    keep the default device (None): an issue, a lone transfer (host by
+    policy) and a group of two through the batched plane on the CPU never
+    ask for CUDA, while each party's `ZKATDLogDriver(pp)` still resolves
+    to the card on its first batched-plane call (raising here, where
+    there is none)."""
+    from fabric_token_sdk_tpu_torch.api.validator import RequestValidator
+    from fabric_token_sdk_tpu_torch.api.wallet import AuditorWallet
+    from fabric_token_sdk_tpu_torch.crypto import sign
+    from fabric_token_sdk_tpu_torch.drivers.zkatdlog import ZKATDLogDriver
+    from fabric_token_sdk_tpu_torch.services.auditor import AuditorService
+    from fabric_token_sdk_tpu_torch.services.network import BlockPolicy, Network
+    from fabric_token_sdk_tpu_torch.services.ttx import Party, Transaction
+
+    asked = []
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: asked.append(1) or False)
+    pp = setup.setup(base=4, exponent=2, rng=random.Random(0xCA11))
+    rng = random.Random(4)
+    aw = AuditorWallet("auditor", sign.keygen(rng))
+    auditor = AuditorService(ZKATDLogDriver(pp), aw)
+    net = Network(RequestValidator(ZKATDLogDriver(pp, device="cpu"), aw.identity),
+                  BlockPolicy(max_block_txs=8), device="cpu")
+    issuer_p, alice_p, bob_p = (Party(n, ZKATDLogDriver(pp), net, aw.identity, rng=rng)
+                                for n in ("issuer", "alice", "bob"))
+    issuer = issuer_p.new_issuer_wallet("issuer")
+    pp.add_issuer(issuer.identity)
+    alice = alice_p.new_owner_wallet("alice", anonymous=True, nym_params=pp.nym_params)
+    bob = bob_p.new_owner_wallet("bob", anonymous=True, nym_params=pp.nym_params)
+    tx = Transaction(issuer_p, "seed")
+    tx.issue("issuer", "USD", [3, 3, 3], [alice.recipient_identity()] * 3, anonymous=False)
+    tx.collect_endorsements(auditor)
+    tx.submit()
+    txs = []
+    for i in range(3):
+        t = Transaction(alice_p, f"pay-{i}")
+        t.transfer("alice", "USD", [3], [bob.recipient_identity()])
+        t.collect_endorsements(auditor)
+        txs.append(t)
+    assert txs[0].submit().status.value == "Valid"
+    for t in txs[1:]:
+        t.submit_async()
+    assert [t.wait().status.value for t in txs[1:]] == ["Valid", "Valid"]
+    assert (alice_p.balance("USD"), bob_p.balance("USD")) == (0, 9)
+    assert net.device == torch.device("cpu") and not asked
+    assert all(p.driver.device is None for p in (issuer_p, alice_p, bob_p))
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        alice_p.driver.batch_prover()
+    assert asked
