@@ -126,6 +126,28 @@ transfer, certification, the owner and query views and both vaults
 rebuilt from their journals. Statuses, balances, ttxdb and auditor rows
 and launch counts must be exact, with no host re-verification.
 
+Last, the replicated ledger over the wire (`[repl]`): two ledger node
+processes on the card (`chip_smoke.py --repl-node leader|follower`, each
+`warmup()` first, then `Network(RequestValidator(ZKATDLogDriver(pp)),
+BlockPolicy(max_block_txs=64), wal_path=...)` under a `LedgerServer`),
+the leader restored from the snapshot `[ledger]`'s backlog starts from,
+the follower bootstrapped from it by `repl.bootstrap`. This process is
+the client, `RemoteNetwork(endpoints=[leader, follower])`: a 16-request
+issue block with a forged issuer signature (the leader's sign plane),
+`[ledger]`'s backlog in 16 `submit_many` groups of 64 (a block and a
+proof-plane call each, `ops.health` probed while one validates), the
+leader SIGKILLed once the follower holds the ninth group's block and
+before the leader acknowledges it, the follower promoted over the wire,
+the killed group's verdicts adopted exactly once through the client's
+failover, the rest of the backlog and a second issue block on
+the promoted node's card. Statuses must equal `[ledger]`'s, no
+acknowledged tx lost or doubled (the promoted node's journal recovered
+on the CPU), the end state `[ledger]`'s plus the issues, each node's
+launches (over `ops.metrics`) as planned, no host re-verification. It
+prints each node's start-to-READY and warmup times, tx/s over the wire
+before and after the failover, the failover time, the ship wait a
+block and the probe latency during a block.
+
 Phases print one line each. Before the last line come the GPU's name
 and power limit as `nvidia-smi` reports them and one JSON object with
 each path kernel's launches, times and bound; the last line is
@@ -833,6 +855,9 @@ def ledger_phase(pp, ctx, verify_launches, sign_launches, block=BLOCK_TXS, devic
             bad = [(g, w) for g, w in zip(runs[run], want_b) if g != w]
             fail(f"[ledger] backlog {run}: {len(bad)} statuses differ, e.g. {bad[:2]}")
         ms[f"backlog_{run}_txs_per_s"] = len(raws_b) / (ms[f"backlog_{run}"] / 1e3)
+    # what [repl] replays over the wire: the backlog's start, statuses and end
+    ctx.update(backlog_minted=minted, backlog_statuses=runs["sequential"],
+               backlog_end=loads(net_b.snapshot()))
 
     # ---------------------------------------------------- 4. recovery
     rec_net = timed("recover", lambda: Network.recover(validator, wal_path, policy=policy,
@@ -1352,10 +1377,538 @@ def ttx_line(ms: dict) -> str:
         f"re-verification, breakers {ms['breakers']}; phase {ms['phase'] / 1e3:.1f} s")
 
 
+REPL_ISSUE = 16  # the [repl] issue blocks' requests
+REPL_GROUP = 64  # the [ledger] backlog in submit_many groups of one block each
+REPL_KILL_GROUP = 8  # the group in flight (0-based) when the leader is killed
+REPL_PROBE_GROUP = 3  # the group during which ops.health is probed
+REPL_NODE_TIMEOUT_S = 300.0  # a node's start to READY, at most
+REPL_SHIP_DEADLINE_S = 120.0  # the killed group's block on the follower, at most
+
+
+def repl_node(role: str, work: str, port: int, peer: str, device, block: int,
+              pairing: bool) -> int:
+    """One ledger node of the `[repl]` phase, run by it as
+    `chip_smoke.py --repl-node ROLE --repl-work DIR ...`: reads the public
+    parameters the phase wrote, builds the zkatdlog `RequestValidator`,
+    runs `warmup()` (every extension built or loaded, each kernel launched
+    once) and builds the zkatdlog driver's batched verifier, then a `Network` at
+    `max_block_txs=block` on `device` (None: the card). The leader is
+    recovered from `DIR/leader.wal` (a snapshot and no journal: the
+    backlog's minted inputs), waits for the follower's `LedgerServer` and
+    attaches to it as the replication leader, then waits until the
+    follower is streaming (bootstrapped); the follower starts empty and
+    attaches as a follower. Prints `READY <port> <json>` (its times and the
+    extensions built and loaded), then serves until SIGTERM (an orderly
+    stop) or SIGKILL. A node without CUDA, or whose build fails, exits
+    non-zero."""
+    import signal
+    import socket
+    import threading
+
+    t_start = time.perf_counter()
+    import torch
+
+    if device is None and not torch.cuda.is_available():
+        fail(f"[repl] {role}: torch.cuda.is_available() is false")
+    sys.path.insert(0, ROOT)
+    from fabric_token_sdk_tpu_torch.api.validator import RequestValidator
+    from fabric_token_sdk_tpu_torch.crypto.setup import PublicParams
+    from fabric_token_sdk_tpu_torch.drivers.zkatdlog import ZKATDLogDriver
+    from fabric_token_sdk_tpu_torch.ops import warmup as wu
+    from fabric_token_sdk_tpu_torch.services.network import (
+        BlockPolicy, LedgerServer, Network, replication,
+    )
+    from fabric_token_sdk_tpu_torch.services.network.remote import _recv_msg, _send_msg
+
+    t_import = time.perf_counter() - t_start
+    with open(os.path.join(work, "pp.bin"), "rb") as fh:
+        pp = PublicParams.deserialize(fh.read())
+    validator = RequestValidator(ZKATDLogDriver(pp, device=device))
+    t = time.perf_counter()
+    summary = wu.warmup(device=device, include_pairing=pairing)
+    warm_s = time.perf_counter() - t
+    t = time.perf_counter()
+    validator.driver.batch_verifier()  # its tables, off the first block
+    verifier_s = time.perf_counter() - t
+    policy = BlockPolicy(max_block_txs=block, sign_batched=None if device is None else True)
+    wal = os.path.join(work, f"{role}.wal")
+    if role == "leader":
+        net = Network.recover(validator, wal, policy=policy, device=device)
+    else:
+        net = Network(validator, policy, wal_path=wal, device=device)
+    server = LedgerServer(network=net, port=port).start()
+    if role == "follower":
+        replication.attach_follower(net)
+    else:
+        host, _, fport = peer.rpartition(":")
+        deadline = time.monotonic() + REPL_NODE_TIMEOUT_S
+        while True:  # the follower's server up: an ops.health answer
+            try:
+                with socket.create_connection((host, int(fport)), timeout=2.0) as sock:
+                    _send_msg(sock, {"op": "ops.health"})
+                    if (_recv_msg(sock) or {}).get("ok"):
+                        break
+            except OSError:
+                pass
+            if time.monotonic() > deadline:
+                fail("[repl] leader: the follower never answered")
+            time.sleep(0.05)
+        state = replication.attach_leader(net, [(host, int(fport))])
+        while state.shipper.link_states()[0]["state"] != "streaming":
+            if time.monotonic() > deadline:
+                fail(f"[repl] leader: the link never streamed: {state.shipper.link_states()}")
+            time.sleep(0.02)
+    signal.signal(signal.SIGTERM, lambda *_: (server.stop(), os._exit(0)))
+    print("READY", server.address[1], json.dumps({
+        "role": role, "pid": os.getpid(), "device": str(net.device), "height": net.height(),
+        "import_s": t_import, "warmup_s": warm_s, "verifier_s": verifier_s,
+        "ready_s": time.perf_counter() - t_start, "programs": summary["programs"],
+        "built": summary["built"], "loaded": summary["loaded"]}), flush=True)
+    threading.Event().wait()
+    return 0
+
+
+def repl_phase(pp, ctx, range_launches, sign_launches, block=BLOCK_TXS, n_issue=REPL_ISSUE,
+               group=REPL_GROUP, kill_group=REPL_KILL_GROUP, probe_group=REPL_PROBE_GROUP,
+               device=None, pairing=True) -> dict:
+    """The replicated ledger on the card, over the wire: two node
+    processes (`repl_node`), the smoke's process the client.
+
+    The leader starts from the snapshot `[ledger]`'s backlog started from
+    (its minted inputs, under one empty genesis block, so that the empty
+    follower's catch-up is a `repl.bootstrap`); a `RemoteNetwork(
+    endpoints=[leader, follower])` sends an issue block of `n_issue` of
+    `[drivers]`' issue requests, one with a forged issuer signature (the
+    sign plane), then the backlog as `submit_many` groups of `group` (a
+    block each, the proof plane). `ops.health` is probed from another
+    client while group `probe_group` validates. The leader is
+    SIGKILLed as soon as the follower holds group `kill_group`'s block,
+    while the leader waits for that ship's answer and before its acks go
+    out; the follower is promoted over the wire; the client resolves the
+    killed group exactly once by adopting the verdicts the new leader
+    holds (`status` of each of its txs, which fails the client over),
+    then sends the rest of the backlog and a second issue block, all
+    validated on the promoted node's card.
+
+    Fails unless: every acknowledged status equals `[ledger]`'s for the
+    same request (the forged issues rejected by the sign plane, the rest
+    valid); no tx is committed twice and none acknowledged is lost (the
+    promoted node's journal recovered on the CPU with `Network.recover`,
+    which re-verifies nothing); its state equals `[ledger]`'s backlog end
+    state plus the valid issues' outputs; the follower's height at the
+    kill covers every group acknowledged before it; each node's kernel
+    launches (`kernel.launches.*` over `ops.metrics`, the leader's just
+    before the kill) equal the plan, the follower's none before its
+    promotion; no host re-verification, no `DevicePlaneError`, every
+    breaker closed; `ops.health` answered while a block validated;
+    `device.mem.bytes` above 0 and below the card's memory. Returns the
+    times."""
+    import select
+    import signal
+    import socket
+    import tempfile
+    import threading
+
+    import torch
+
+    from fabric_token_sdk_tpu_torch.api.request import IssueRecord, TokenRequest
+    from fabric_token_sdk_tpu_torch.api.validator import RequestValidator
+    from fabric_token_sdk_tpu_torch.crypto.serialization import dumps, loads
+    from fabric_token_sdk_tpu_torch.drivers.zkatdlog import ZKATDLogDriver
+    from fabric_token_sdk_tpu_torch.ops import _build
+    from fabric_token_sdk_tpu_torch.services.network import Network, RemoteNetwork
+
+    ms = {}
+    t_phase = time.perf_counter()
+    if device is None:
+        torch.cuda.empty_cache()  # the earlier phases' cached blocks, for the nodes
+    tmp = tempfile.TemporaryDirectory()
+    work = tmp.name
+    with open(os.path.join(work, "pp.bin"), "wb") as fh:
+        fh.write(pp.serialize())
+    minted = loads(ctx["backlog_minted"])
+    minted["blocks"] = [[0, [], 0.0]]  # the genesis block: height 1
+    with open(os.path.join(work, "leader.wal.snap"), "wb") as fh:
+        fh.write(dumps(minted))
+    with socket.socket() as s:  # the follower's port, known to the leader at spawn
+        s.bind(("127.0.0.1", 0))
+        fport = s.getsockname()[1]
+
+    def spawn(role, port, peer):
+        cmd = [sys.executable, os.path.join(ROOT, "chip_smoke.py"), "--repl-node", role,
+               "--repl-work", work, "--repl-port", str(port), "--repl-peer", peer,
+               "--repl-block", str(block)]
+        if device is not None:
+            cmd += ["--repl-device", str(device)]
+        if not pairing:
+            cmd += ["--repl-no-pairing"]
+        err = open(os.path.join(work, f"{role}.err"), "w")
+        return subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=err, text=True), err
+
+    def tail(role):
+        with open(os.path.join(work, f"{role}.err")) as fh:
+            return fh.read()[-3000:]
+
+    procs = {}
+    try:
+        t_spawn = time.perf_counter()
+        procs["follower"] = spawn("follower", fport, "-")
+        procs["leader"] = spawn("leader", 0, f"127.0.0.1:{fport}")
+        nodes = {}
+        deadline = time.monotonic() + REPL_NODE_TIMEOUT_S
+        while len(nodes) < 2:
+            for role, (proc, _err) in procs.items():
+                if role in nodes:
+                    continue
+                if proc.poll() is not None:
+                    fail(f"[repl] the {role} exited with {proc.returncode}:\n{tail(role)}")
+                ready, _, _ = select.select([proc.stdout], [], [], 0.05)
+                if ready:
+                    line = proc.stdout.readline()
+                    if not line.startswith("READY"):
+                        fail(f"[repl] the {role} printed {line!r}:\n{tail(role)}")
+                    _, port, info = line.split(" ", 2)
+                    nodes[role] = dict(json.loads(info), port=int(port),
+                                       spawn_to_ready_s=time.perf_counter() - t_spawn)
+            if time.monotonic() > deadline:
+                fail(f"[repl] nodes not ready: {sorted(nodes)}")
+        for role, info in nodes.items():
+            if info["device"] != str(torch.device("cuda" if device is None else device)):
+                fail(f"[repl] the {role} runs on {info['device']}")
+        ms["nodes"] = nodes
+        leader_addr = ("127.0.0.1", nodes["leader"]["port"])
+        follower_addr = ("127.0.0.1", nodes["follower"]["port"])
+        client = RemoteNetwork(endpoints=[leader_addr, follower_addr], timeout=600.0,
+                               retries=8, backoff_s=0.05)
+        to_leader = RemoteNetwork(leader_addr, timeout=600.0)
+        to_follower = RemoteNetwork(follower_addr, timeout=600.0, retries=8, backoff_s=0.1)
+
+        def launches(remote_net):
+            c = remote_net.ops_metrics()["counters"]
+            return {k.name: c.get(f"kernel.launches.{k.name}", 0) for k in _build.ALL_KERNELS}
+
+        def minus(a, b):
+            return {k: a[k] - b[k] for k in a}
+
+        def times(plan, n):
+            return {k: v * n for k, v in plan.items()}
+
+        def plus(a, b):
+            return {k: a[k] + b[k] for k in a}
+
+        base = {"leader": launches(to_leader), "follower": launches(to_follower)}
+        if nodes["follower"]["height"] != 0 or to_follower.height() != 1:
+            fail("[repl] the follower did not bootstrap the leader's genesis snapshot")
+
+        # ------------------------------------------------ the issue blocks
+        def issue_block(k0, forge):
+            reqs = list(ctx["issue_reqs"][k0:k0 + n_issue])
+            genuine = reqs[forge].issues[0]
+            forged = TokenRequest(anchor=reqs[forge].anchor)
+            forged.issues.append(IssueRecord(
+                action=genuine.action, issuer=genuine.issuer,
+                outputs_metadata=list(genuine.outputs_metadata),
+                receivers=list(genuine.receivers),
+                signature=reqs[(forge + 1) % len(reqs)].issues[0].signature))
+            reqs[forge] = forged
+            want = [(r.anchor, "Valid", "") for r in reqs]
+            want[forge] = (forged.anchor, "Invalid",
+                           "invalid issuer signature: rejected by the batched signature plane")
+            return reqs, want
+
+        def statuses(events):
+            return [(e.tx_id, e.status.value, e.message) for e in events]
+
+        issues1, want_i1 = issue_block(0, 3 % n_issue)
+        t = time.perf_counter()
+        got = statuses(client.submit_many([r.to_bytes() for r in issues1]))
+        ms["issue_block_1"] = (time.perf_counter() - t) * 1e3
+        if got != want_i1:
+            fail(f"[repl] issue block 1: {[(g, w) for g, w in zip(got, want_i1) if g != w][:2]}")
+
+        # ------------------------------------------------ the backlog, to the kill
+        reqs_b = ctx["reqs_b"]
+        want_b = {s[0]: s for s in ctx["backlog_statuses"]}
+        groups = [reqs_b[i:i + group] for i in range(0, len(reqs_b), group)]
+        if len(groups) <= kill_group + 1:
+            fail(f"[repl] {len(groups)} groups: the kill needs more")
+        acked, group_ms = {}, []
+
+        def submit(g):
+            """The wire call alone (threads run it; checks stay in the main
+            thread, where `fail` exits)."""
+            t_ = time.perf_counter()
+            evs = statuses(client.submit_many([r.to_bytes() for r in groups[g]]))
+            group_ms.append((time.perf_counter() - t_) * 1e3)
+            return evs
+
+        def record(g, evs):
+            for e in evs:
+                if e != want_b[e[0]]:
+                    fail(f"[repl] group {g}: {e}, [ledger] gave {want_b[e[0]]}")
+                if e[0] in acked:
+                    fail(f"[repl] {e[0]} acknowledged twice")
+                acked[e[0]] = e
+
+        def in_thread(g, box):
+            try:
+                box["events"] = submit(g)
+            except Exception as e:  # noqa: BLE001 -- judged by the caller
+                box["error"] = e
+            finally:
+                box["done"].set()
+
+        probes = []
+        t = time.perf_counter()
+        for g in range(kill_group):
+            if g != probe_group:
+                record(g, submit(g))
+                continue
+            prober = RemoteNetwork(leader_addr, timeout=60.0)
+            box = {"done": threading.Event()}
+            thread = threading.Thread(target=in_thread, args=(g, box))
+            thread.start()
+            while not box["done"].is_set():  # probes during the block, on their own connection
+                t_ = time.perf_counter()
+                h = prober.ops_health()
+                probes.append(((time.perf_counter() - t_) * 1e3, box["done"].is_set(),
+                               h["inflight"]))
+                time.sleep(0.01)
+            thread.join()
+            prober.close()
+            if "error" in box:
+                fail(f"[repl] group {g}: {box['error']!r}")
+            record(g, box["events"])
+        ms["backlog_before_s"] = time.perf_counter() - t
+        ms["backlog_before_txs_per_s"] = kill_group * group / ms["backlog_before_s"]
+        during = [p for p in probes if not p[1]]
+        if not during or not any(p[2] for p in during):
+            fail(f"[repl] no ops.health answer while a block was in flight: {probes[:4]}")
+        lat = sorted(p[0] for p in during)
+        ms["probe_ms"] = {"n": len(lat), "median": statistics.median(lat),
+                          "p95": lat[int(0.95 * (len(lat) - 1))], "max": lat[-1]}
+        acked_before = len(acked)
+
+        # ------------------------------------------------ the leader, just before the kill
+        lh = to_leader.ops_health()
+        lsnap = to_leader.ops_metrics()
+        lflight = to_leader.ops_flight(1 << 20)
+        plan_l = plus(times(range_launches, kill_group), sign_launches)
+        got_l = minus(launches(to_leader), base["leader"])
+        if got_l != plan_l:
+            fail(f"[repl] leader launches {got_l}, planned {plan_l}")
+        ship = lsnap["histograms"].get("repl.ship.wait.seconds", {})
+        if ship.get("count", 0) < kill_group + 1:
+            fail(f"[repl] {ship.get('count')} ship waits for {kill_group + 1} blocks")
+        ms["ship_wait_ms"] = {k: ship[k] * 1e3 for k in ("p50", "p95", "max", "mean")}
+        degraded = {k: lsnap["counters"].get(k, 0) for k in (
+            "repl.ship.ack_timeouts", "repl.ship.unsynced", "repl.ship.dropped",
+            "repl.link.errors")}
+        if any(degraded.values()):
+            fail(f"[repl] the leader's shipping degraded: {degraded}, links {lh['repl']}")
+        ms["leader_links"] = lh["repl"]["followers"]
+        checks = {"leader": (lh, lsnap, lflight)}
+        h_acked = 2 + kill_group  # genesis, the issue block, the acknowledged groups
+        if lh["height"] != h_acked:
+            fail(f"[repl] leader at height {lh['height']}, expected {h_acked}")
+
+        # ------------------------------------------------ kill, promote, fail over
+        outcome = {"done": threading.Event()}
+        thread = threading.Thread(target=in_thread, args=(kill_group, outcome))
+        thread.start()
+        # the kill on replication state: once the follower holds the
+        # group's block, the leader is inside its ship wait and the acks
+        # are not yet out, so the client must adopt the replicated verdicts
+        h_ship = h_acked + 1
+        deadline = time.monotonic() + REPL_SHIP_DEADLINE_S
+        while to_follower.height() < h_ship:
+            if time.monotonic() > deadline:
+                fail(f"[repl] the follower never reached height {h_ship}:\n"
+                     f"{tail('follower')}")
+            time.sleep(0.002)
+        t_kill = time.perf_counter()
+        procs["leader"][0].send_signal(signal.SIGKILL)
+        procs["leader"][0].wait(timeout=60)
+        thread.join(timeout=120)
+        if thread.is_alive():
+            fail("[repl] the in-flight group never returned after the kill")
+        if "events" in outcome:  # acks out before the kill, or verdicts adopted by the client
+            record(kill_group, outcome["events"])
+            h_acked += 1
+        h_kill = to_follower.height()
+        if h_kill != h_ship:
+            rc = {k: v for k, v in lsnap["counters"].items() if k.startswith("repl.")}
+            fail(f"[repl] follower at height {h_kill} at the kill, {h_acked} acknowledged; "
+                 f"leader links {lh['repl']}, counters {rc}:\n{tail('follower')}")
+        if minus(launches(to_follower), base["follower"]) != times(range_launches, 0):
+            fail("[repl] the follower launched kernels before its promotion")
+        t = time.perf_counter()
+        epoch = to_follower.promote()
+        ms["promote_ms"] = (time.perf_counter() - t) * 1e3
+        if epoch != 1:
+            fail(f"[repl] promoted at epoch {epoch}")
+        # the killed group, exactly once: what the new leader holds is adopted
+        killed = groups[kill_group]
+        known = [client.status(r.anchor) for r in killed]  # fails the client over
+        if client.address != follower_addr:
+            fail(f"[repl] the client did not fail over: {client.address}")
+        held = [r for r, k in zip(killed, known) if k is not None]
+        if len(held) != len(killed):
+            fail(f"[repl] {len(held)} of the killed group's {len(killed)} txs on the new leader")
+        for r, k in zip(killed, known):
+            e = (r.anchor, k.status.value, k.message)
+            if e != want_b[r.anchor]:
+                fail(f"[repl] killed group: {e}, [ledger] gave {want_b[r.anchor]}")
+            if r.anchor in acked and acked[r.anchor] != e:
+                fail(f"[repl] {r.anchor} acknowledged {acked[r.anchor]}, held {e}")
+            acked[r.anchor] = e
+        ms["adopted_s"] = time.perf_counter() - t_kill
+        t = time.perf_counter()
+        t_first = None
+        for g in range(kill_group + 1, len(groups)):
+            record(g, submit(g))
+            if t_first is None:
+                t_first = time.perf_counter()
+        blocks_new = len(groups) - kill_group - 1
+        ms["failover_s"] = t_first - t_kill
+        ms["backlog_after_s"] = time.perf_counter() - t
+        ms["backlog_after_txs_per_s"] = (sum(map(len, groups[kill_group + 1:]))
+                                         / ms["backlog_after_s"])
+        ms["killed_group"] = {"held": len(held),
+                              "client_saw": "events" if "events" in outcome else
+                              type(outcome.get("error")).__name__}
+        issues2, want_i2 = issue_block(n_issue, 5 % n_issue)
+        t = time.perf_counter()
+        got = statuses(client.submit_many([r.to_bytes() for r in issues2]))
+        ms["issue_block_2"] = (time.perf_counter() - t) * 1e3
+        if got != want_i2:
+            fail(f"[repl] issue block 2: {[(g, w) for g, w in zip(got, want_i2) if g != w][:2]}")
+        if len(acked) != len(reqs_b) or acked_before != sum(map(len, groups[:kill_group])):
+            fail(f"[repl] {len(acked)} of {len(reqs_b)} backlog txs acknowledged")
+
+        # ------------------------------------------------ the promoted node
+        fh = to_follower.ops_health()
+        fsnap = to_follower.ops_metrics()
+        checks["follower"] = (fh, fsnap, to_follower.ops_flight(1 << 20))
+        plan_f = plus(times(range_launches, blocks_new), sign_launches)
+        got_f = minus(launches(to_follower), base["follower"])
+        if got_f != plan_f:
+            fail(f"[repl] promoted follower launches {got_f}, planned {plan_f}")
+        ms["launches"] = {"leader": got_l, "follower": got_f}
+        total = torch.cuda.get_device_properties(0).total_memory if device is None else None
+        ms["device_mem_bytes"] = {}
+        for role, (h, snap, flight) in checks.items():
+            c = snap["counters"]
+            bad = {k: c.get(k, 0) for k in ("ledger.block.batch_errors",
+                                            "batch.sign.host_fallbacks",
+                                            "remote.dispatch.errors.submit_many",
+                                            "remote.dispatch.errors.submit")}
+            events = [e["kind"] for e in flight
+                      if e["kind"].endswith((".host_fallback", ".device_error"))]
+            if any(bad.values()) or events:
+                fail(f"[repl] {role}: host re-verification or a failed plane: {bad}, {events[:3]}")
+            if any(v != "closed" for v in h["breakers"].values()):
+                fail(f"[repl] {role}: breakers {h['breakers']}")
+            mem = snap["gauges"].get("device.mem.bytes")
+            ms["device_mem_bytes"][role] = mem
+            if device is None and not (mem and 0 < mem < total):
+                fail(f"[repl] {role}: device.mem.bytes {mem} (card {total})")
+        if fh["repl"]["role"] != "leader" or fh["repl"]["epoch"] != 1:
+            fail(f"[repl] the promoted node reports {fh['repl']}")
+        height = to_follower.height()
+        for c in (client, to_leader, to_follower):
+            c.close()
+        # an orderly stop, then its journal recovered on the CPU
+        proc = procs["follower"][0]
+        proc.send_signal(signal.SIGTERM)
+        if proc.wait(timeout=60) != 0:
+            fail(f"[repl] the follower stopped with {proc.returncode}:\n{tail('follower')}")
+    finally:
+        for proc, err in procs.values():
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait(timeout=60)
+            err.close()
+    t = time.perf_counter()
+    cpu_validator = RequestValidator(ZKATDLogDriver(pp, device="cpu"))
+    rec = Network.recover(cpu_validator, os.path.join(work, "follower.wal"), device="cpu")
+    ms["recover_cpu_ms"] = (time.perf_counter() - t) * 1e3
+    if rec.height() != height:
+        fail(f"[repl] the promoted node's journal recovers {rec.height()} blocks of {height}")
+    seen = {}
+    for number in range(rec.height()):
+        for tx in rec.block(number).txs:
+            seen[tx] = seen.get(tx, 0) + 1
+    twice = [tx for tx, n in seen.items() if n > 1]
+    lost = [tx for tx in list(acked) + [r.anchor for r in issues1 + issues2] if tx not in seen]
+    if twice or lost:
+        fail(f"[repl] committed twice {twice[:3]}, acknowledged and lost {lost[:3]}")
+    for tx, e in list(acked.items()) + [(w[0], w) for w in want_i1 + want_i2]:
+        got = rec.status(tx)
+        if (tx, got.status.value, got.message) != e:
+            fail(f"[repl] recovered status of {tx}: {got}, acknowledged {e}")
+    end, want_end = loads(rec.snapshot()), ctx["backlog_end"]
+    valid_issues = {r.anchor: len(r.issues[0].outputs_metadata)
+                    for r, w in zip(issues1 + issues2, want_i1 + want_i2) if w[1] == "Valid"}
+    extra = {k for k in end["state"] if k not in want_end["state"]}
+    if ({k: v for k, v in end["state"].items() if k in want_end["state"]} != want_end["state"]
+            or sorted(end["spent"]) != sorted(want_end["spent"])
+            or {k.rsplit(".", 1)[0] for k in extra} != set(valid_issues)
+            or len(extra) != sum(valid_issues.values())):
+        fail("[repl] the promoted node's state is not [ledger]'s backlog end state plus the "
+             "valid issues' outputs")
+    tmp.cleanup()
+    ms.update(phase=(time.perf_counter() - t_phase) * 1e3, height=height, h_kill=h_kill,
+              h_acked=h_acked, blocks_new=blocks_new, group_ms=group_ms, kill_group=kill_group,
+              acked=len(acked) + len(valid_issues))
+    return ms
+
+
+def repl_line(ms: dict) -> str:
+    """The `[repl]` phase's times as one line."""
+    n = ms["nodes"]
+    node = "; ".join(
+        f"{r} start to READY {n[r]['spawn_to_ready_s']:.1f} s (import {n[r]['import_s']:.1f}, "
+        f"warmup {n[r]['warmup_s']:.2f} s over {n[r]['programs']} programs, extensions built "
+        f"{n[r]['built']} / loaded {n[r]['loaded']}, verifier tables "
+        f"{n[r]['verifier_s']:.2f} s)" for r in ("leader", "follower"))
+    p = ms["probe_ms"]
+    return (
+        f"{node}; issue block {ms['issue_block_1']:.1f} ms (one forged signature rejected by "
+        f"the leader's sign plane); backlog over the wire before the kill "
+        f"{ms['backlog_before_txs_per_s']:.1f} tx/s, after {ms['backlog_after_txs_per_s']:.1f} "
+        f"tx/s (groups median {statistics.median(ms['group_ms']):.1f} ms); ship wait a block "
+        f"(ms) {ms['ship_wait_ms']}; ops.health during a block {p['n']} probes, median "
+        f"{p['median']:.2f} ms, p95 {p['p95']:.2f} ms, max {p['max']:.2f} ms; leader SIGKILLed "
+        f"in group "
+        f"{ms['kill_group'] + 1} at height {ms['h_acked']} (follower at {ms['h_kill']}), "
+        f"killed group {ms['killed_group']}, promote {ms['promote_ms']:.1f} ms, its verdicts "
+        f"adopted {ms['adopted_s']:.2f} s after the kill, failover (kill to the new leader's "
+        f"first block acknowledged) {ms['failover_s']:.2f} s; second issue block "
+        f"{ms['issue_block_2']:.1f} ms; launches leader {ms['launches']['leader']}, promoted "
+        f"follower {ms['launches']['follower']} ({ms['blocks_new']} transfer blocks); "
+        f"device.mem.bytes {ms['device_mem_bytes']}; journal recovered on the CPU in "
+        f"{ms['recover_cpu_ms']:.1f} ms at height {ms['height']}; every acknowledged status "
+        f"equals [ledger]'s, none lost or doubled, end state exact, no host re-verification; "
+        f"phase {ms['phase'] / 1e3:.1f} s")
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--seed", type=int, default=20261017)
+    # a [repl] ledger node: the phase spawns two, as `chip_smoke.py --repl-node ...`
+    ap.add_argument("--repl-node", choices=("leader", "follower"), default=None,
+                    help=argparse.SUPPRESS)
+    ap.add_argument("--repl-work", default=None, help=argparse.SUPPRESS)
+    ap.add_argument("--repl-port", type=int, default=0, help=argparse.SUPPRESS)
+    ap.add_argument("--repl-peer", default="-", help=argparse.SUPPRESS)
+    ap.add_argument("--repl-block", type=int, default=BLOCK_TXS, help=argparse.SUPPRESS)
+    ap.add_argument("--repl-device", default=None, help=argparse.SUPPRESS)
+    ap.add_argument("--repl-no-pairing", action="store_true", help=argparse.SUPPRESS)
     args = ap.parse_args()
+    if args.repl_node:
+        return repl_node(args.repl_node, args.repl_work, args.repl_port, args.repl_peer,
+                         args.repl_device, args.repl_block, not args.repl_no_pairing)
 
     import numpy as np
     import torch
@@ -2837,6 +3390,11 @@ def main() -> int:
     say("ttx", ttx_line(ttx_ms) + f"; launches: issue block {SIGN_LAUNCHES}, transfer block and "
         f"each backlog block {TTX_BLOCK_LAUNCHES}, each transfer_many {PROVE_LAUNCHES} [{card}]")
 
+    # ---------------------------------------------------------------- repl
+    repl_ms = repl_phase(pp, drivers_ctx, RANGE_LAUNCHES, SIGN_LAUNCHES)
+    say("repl", repl_line(repl_ms) + f"; planned: each issue block {SIGN_LAUNCHES}, each "
+        f"transfer block {RANGE_LAUNCHES} [{card}]")
+
     # ---------------------------------------------------------------- report
     kernels = []
     big, small = BATCH_TXS * ROWS_PER_TX, BLOCK_TXS * ROWS_PER_TX
@@ -2951,6 +3509,8 @@ def main() -> int:
             for key in ("issue_block", "transfer_block", "backlog_pipelined",
                         "backlog_sequential_group0", "backlog_sequential_block0"):
                 row[f"launches_ttx_{key}"] = ttx_ms["launches"][key][row["name"]]
+            for node, counts in repl_ms["launches"].items():
+                row[f"launches_repl_{node}"] = counts[row["name"]]
     print(json.dumps({
         "range_verify_median_ms": {str(k): v * 1e3 for k, v in range_medians.items()},
         "prove_median_ms": {str(k): v * 1e3 for k, v in prove_medians.items()},
@@ -2960,6 +3520,7 @@ def main() -> int:
         "drivers_ms": drivers_ms,
         "ledger_ms": {k: v for k, v in ledger_ms.items() if k != "launches"},
         "ttx_ms": {k: v for k, v in ttx_ms.items() if k != "launches"},
+        "repl_ms": {k: v for k, v in repl_ms.items() if k != "launches"},
         "build_s": t_build}), flush=True)
     print(card, flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)

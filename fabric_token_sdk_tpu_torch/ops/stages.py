@@ -28,7 +28,7 @@ from ._build import (
     G2_TO_AFFINE, GT_PRODUCT, GT_PRODUCT_FINAL_EXP, MILLER, PAIRING_PRODUCT, check_cuda_tensor,
 )
 from .field import FP, half_to_words, words_to_half
-from ..utils import metrics as mx
+from ..utils import metrics as mx, sysmon
 
 
 def _route(kernel_name: str, *tensors: torch.Tensor) -> bool:
@@ -43,6 +43,7 @@ def _route(kernel_name: str, *tensors: torch.Tensor) -> bool:
     dev = devices.pop()
     mx.counter("stages.calls").inc()
     mx.counter("stages.rows").inc(n)
+    sysmon.sample_stages()  # throttled: the stages.mem.* high-water gauges
     if dev.type == "cuda":
         return True
     if dev.type == "cpu":

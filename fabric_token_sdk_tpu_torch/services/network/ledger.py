@@ -24,10 +24,10 @@ without losing any finality it ever reported. Snapshots and journal
 records are the JAX package's bytes: either package restores or
 recovers what the other wrote.
 
-Not ported: replication (`replication.py`, the leader's WAL shipper and
-the follower's promotion watchdog) and the remote server; `self.repl`
-stays None, and `apply_delta`/`install_snapshot` are the follower-side
-entry points it would call.
+Replication (`replication.py`): a leader's `self.repl` ships every
+journaled record from the commit path; a follower applies them through
+`apply_delta`/`install_snapshot`, which re-verify nothing. The remote
+node (`remote.py`) serves this class over TCP.
 """
 
 from __future__ import annotations
@@ -177,9 +177,10 @@ class Network:
             WriteAheadLog(wal_path) if wal_path else None
         )
         self._snapshot_path = (str(wal_path) + ".snap") if wal_path else None
-        # replication plane: None on a standalone node, and the port has no
-        # replication yet. The commit path only ever calls
-        # `self.repl.on_commit(...)`, which is bounded and degrade-only.
+        # replication plane (replication.py): None on a standalone node,
+        # attached by `replication.attach_leader`/`attach_follower`. The
+        # commit path only ever calls `self.repl.on_commit(...)`, which is
+        # bounded and degrade-only.
         self.repl = None
 
     # ------------------------------------------------------------ queries

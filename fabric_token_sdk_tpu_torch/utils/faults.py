@@ -19,6 +19,12 @@ Sites in the port (grep for `faults.fire` to confirm the live set):
                          every signature row to the host loop, never
                          fails the block)
     repl.apply           at the start of `Network.apply_delta`
+    repl.ship            on a leader's link thread, before it ships a
+                         record (degrades that link, never the commit)
+    repl.heartbeat       on a leader's link thread, before a heartbeat
+    remote.send          in `RemoteNetwork._call`, before a frame is sent
+    remote.recv          in `RemoteNetwork._call`, before the answer is
+                         read (a drop there races the server's commit)
 
 Arming:
 

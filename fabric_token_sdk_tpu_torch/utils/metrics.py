@@ -6,9 +6,10 @@ the batched verifiers, the host prover and verifier, the parse caches,
 the native self-checks, the dispatch ledger (`utils/devobs.py`), the
 mesh plane (`parallel/sharding.py`), the host-path profiler
 (`utils/profiler.py`), the SLO engine (`utils/slo.py`) and the block
-validation path (`services/network/`) keep their instruments under the
-same names. Heartbeats, sidecars and the JSON and Prometheus export
-come over when a port module needs them.
+validation path (`services/network/`), the remote node and its
+replication plane keep their instruments under the same names.
+Heartbeats and the Prometheus export come over when a port module
+needs them.
 
 * One process-wide thread-safe ``Registry`` (``REGISTRY``) holding named
   counters, gauges and histograms, completed span trees and free-form
@@ -19,19 +20,29 @@ come over when a port module needs them.
   activates it for the thread; spans opened under it carry
   ``trace_id``/``span_id``/``parent_span_id``, so the work a group-commit
   thread does for another submitter's tx lands in that tx's trace.
+  ``TraceContext.to_wire``/``from_wire`` is the format the remote node
+  (`services/network/remote.py`) carries in its request frames.
 * The flight recorder (``FLIGHT`` / ``flight(kind, ...)``) is an
   always-on bounded ring of structured events (mesh clamps, degrades,
   submits, block cuts, verify decisions, WAL appends, faults), each
   tagged with the active or the passed trace id.
+* Export: ``Registry.snapshot()``/``to_json()`` (the ``*.metrics.json``
+  sidecar format, and the body of the node's ``ops.metrics`` RPC, with
+  p50/p95/p99 a histogram); ``flush_sidecar`` writes it and the flight
+  ring's ``*.flight.json``, ``install_sidecar`` does so at exit and on
+  SIGTERM/SIGINT.
 * ``logger`` is the port's logger (the reference's `utils/tracing.logger`).
 """
 
 from __future__ import annotations
 
+import atexit
 import collections
 import contextlib
+import json
 import logging
 import os
+import signal
 import threading
 import time
 from dataclasses import dataclass, field
@@ -84,6 +95,13 @@ class Gauge:
         with self._lock:
             self._value = v
 
+    def inc(self, n: float = 1.0) -> None:
+        with self._lock:
+            self._value += n
+
+    def dec(self, n: float = 1.0) -> None:
+        self.inc(-n)
+
     @property
     def value(self) -> float:
         return self._value
@@ -97,14 +115,19 @@ DEFAULT_BUCKETS = (
 )
 
 
+# Quantile labels every histogram exports (the snapshot's keys): the
+# latency numbers the node's `ops.metrics` RPC serves.
+QUANTILES = (("p50", 0.50), ("p95", 0.95), ("p99", 0.99))
+
+
 class Histogram:
     """Counts of observations per bucket (`DEFAULT_BUCKETS` unless the
-    first creator names others, plus +Inf), their count and sum. The SLO
-    engine (`utils/slo.py`) diffs `state()` copies and reads the share of
-    a window under a bound with `fraction_le`; quantiles and export come
-    with the port's export plane."""
+    first creator names others, plus +Inf), their count, sum, min and
+    max. The SLO engine (`utils/slo.py`) diffs `state()` copies and
+    reads the share of a window under a bound with `fraction_le`;
+    `quantile` and `snapshot` serve the ops plane."""
 
-    __slots__ = ("name", "buckets", "_counts", "_count", "_sum", "_lock")
+    __slots__ = ("name", "buckets", "_counts", "_count", "_sum", "_min", "_max", "_lock")
 
     def __init__(self, name: str, buckets: Sequence[float] = DEFAULT_BUCKETS):
         self.name = name
@@ -112,12 +135,18 @@ class Histogram:
         self._counts = [0] * (len(self.buckets) + 1)  # +inf bucket
         self._count = 0
         self._sum = 0.0
+        self._min = float("inf")
+        self._max = float("-inf")
         self._lock = threading.Lock()
 
     def observe(self, v: float) -> None:
         with self._lock:
             self._count += 1
             self._sum += v
+            if v < self._min:
+                self._min = v
+            if v > self._max:
+                self._max = v
             for i, b in enumerate(self.buckets):
                 if v <= b:
                     self._counts[i] += 1
@@ -127,6 +156,36 @@ class Histogram:
     @property
     def count(self) -> int:
         return self._count
+
+    @property
+    def sum(self) -> float:
+        return self._sum
+
+    @staticmethod
+    def _interp(q: float, buckets, counts, total: int, lo: float, hi: float) -> float:
+        """Bucket-interpolated quantile (Prometheus `histogram_quantile`
+        style): the bucket where the cumulative count crosses rank
+        ``q*total``, linearly between its bounds, clamped to the observed
+        ``[min, max]`` (a single observation reports itself). A rank in
+        the +Inf bucket reports the observed max."""
+        rank = q * total
+        cum, prev = 0, 0.0
+        for b, c in zip(buckets, counts):
+            if c and cum + c >= rank:
+                v = prev + (b - prev) * (rank - cum) / c
+                return min(max(v, lo), hi)
+            cum += c
+            prev = b
+        return hi
+
+    def quantile(self, q: float) -> Optional[float]:
+        """Estimate the q-quantile (0 < q < 1); None when empty."""
+        with self._lock:
+            if not self._count:
+                return None
+            counts = list(self._counts)
+            total, lo, hi = self._count, self._min, self._max
+        return self._interp(q, self.buckets, counts, total, lo, hi)
 
     def state(self) -> tuple:
         """`(counts, count, sum)`: a consistent copy of the cumulative
@@ -155,6 +214,30 @@ class Histogram:
             break
         return min(1.0, good / total)
 
+    def snapshot(self) -> dict:
+        # timed acquire: may run under a signal handler (see Registry)
+        acquired = self._lock.acquire(timeout=1.0)
+        try:
+            d = {
+                "count": self._count,
+                "sum": round(self._sum, 6),
+                "buckets": {("%g" % b): c for b, c in zip(self.buckets, self._counts) if c},
+            }
+            if self._counts[-1]:
+                d["buckets"]["+Inf"] = self._counts[-1]
+            if self._count:
+                d["min"] = round(self._min, 6)
+                d["max"] = round(self._max, 6)
+                d["mean"] = round(self._sum / self._count, 6)
+                counts = list(self._counts)
+                for label, q in QUANTILES:
+                    d[label] = round(self._interp(q, self.buckets, counts, self._count,
+                                                  self._min, self._max), 6)
+            return d
+        finally:
+            if acquired:
+                self._lock.release()
+
 
 # ------------------------------------------------------------ span trees
 
@@ -176,6 +259,32 @@ class Span:
     def duration(self) -> float:
         return (self.end if self.end is not None else time.monotonic()) - self.start
 
+    def to_dict(self) -> dict:
+        d = {"name": self.name, "duration_s": round(self.duration, 6)}
+        if self.start_unix:
+            d["start_unix"] = round(self.start_unix, 6)
+        if self.trace_id:
+            d["trace_id"] = self.trace_id
+        if self.span_id:
+            d["span_id"] = self.span_id
+        if self.parent_span_id:
+            d["parent_span_id"] = self.parent_span_id
+        if self.attrs:
+            d["attrs"] = {k: _jsonable(v) for k, v in self.attrs.items()}
+        if self.children:
+            d["children"] = [c.to_dict() for c in self.children]
+        return d
+
+
+def _jsonable(v):
+    if isinstance(v, (str, int, float, bool)) or v is None:
+        return v
+    if isinstance(v, (list, tuple)):
+        return [_jsonable(x) for x in v]
+    if isinstance(v, dict):
+        return {str(k): _jsonable(x) for k, x in v.items()}
+    return str(v)
+
 
 _tls = threading.local()
 
@@ -190,10 +299,24 @@ def _new_id(nbytes: int = 8) -> str:
 @dataclass
 class TraceContext:
     """Trace identity: ``trace_id`` names one end-to-end transaction;
-    ``span_id`` is the id new child spans adopt as their parent."""
+    ``span_id`` is the id new child spans adopt as their parent.
+    ``to_wire()``/``from_wire()`` is the cross-process format the remote
+    node carries in request frames (the JAX package's)."""
 
     trace_id: str
     span_id: str = ""
+
+    def to_wire(self) -> list:
+        return [self.trace_id, self.span_id]
+
+    @classmethod
+    def from_wire(cls, wire) -> Optional["TraceContext"]:
+        if not wire:
+            return None
+        try:
+            return cls(str(wire[0]), str(wire[1]) if len(wire) > 1 else "")
+        except (TypeError, KeyError, IndexError):
+            return None
 
 
 def new_trace() -> TraceContext:
@@ -357,13 +480,50 @@ class Registry:
             for c in s.children:
                 walk(c)
 
-        with self._lock:
+        # timed acquire: may run under a signal handler (see snapshot)
+        acquired = self._lock.acquire(timeout=1.0)
+        try:
             roots = list(self._span_roots)
+        finally:
+            if acquired:
+                self._lock.release()
         for s in roots:
             walk(s)
         for a in agg.values():
             a["total_s"] = round(a["total_s"], 6)
         return agg
+
+    def snapshot(self) -> dict:
+        """Everything the registry holds, JSON-ready: the sidecar format
+        and the body of the `ops.metrics` RPC. `phases` stays empty: the
+        port records none (no `Heartbeat`)."""
+        # timed acquire: flush_sidecar() runs from signal handlers, which
+        # can interrupt a thread that already holds this (non-reentrant)
+        # lock; fall back to a best-effort unlocked read over deadlock
+        acquired = self._lock.acquire(timeout=1.0)
+        try:
+            counters = {n: c.value for n, c in sorted(self._counters.items())}
+            gauges = {n: g.value for n, g in sorted(self._gauges.items())}
+            hists = dict(sorted(self._histograms.items()))
+            meta = {k: _jsonable(v) for k, v in self._meta.items()}
+            roots = list(self._span_roots)
+        finally:
+            if acquired:
+                self._lock.release()
+        return {
+            "meta": meta,
+            "pid": os.getpid(),
+            "flushed_unix": round(time.time(), 3),
+            "phases": [],
+            "counters": counters,
+            "gauges": gauges,
+            "histograms": {n: h.snapshot() for n, h in hists.items()},
+            "span_summary": self.span_summary(),
+            "spans": [s.to_dict() for s in roots[-200:]],
+        }
+
+    def to_json(self, indent: Optional[int] = 2) -> str:
+        return json.dumps(self.snapshot(), indent=indent, sort_keys=False)
 
     def reset(self) -> None:
         with self._lock:
@@ -405,16 +565,6 @@ def timed(hist_name: str):
 # ------------------------------------------------------------ flight recorder
 
 
-def _jsonable(v):
-    if isinstance(v, (str, int, float, bool)) or v is None:
-        return v
-    if isinstance(v, (list, tuple)):
-        return [_jsonable(x) for x in v]
-    if isinstance(v, dict):
-        return {str(k): _jsonable(x) for k, x in v.items()}
-    return str(v)
-
-
 class FlightRecorder:
     """Bounded ring of structured lifecycle events, always on (one lock
     and a deque append on rare events); the oldest events go first."""
@@ -435,12 +585,55 @@ class FlightRecorder:
         REGISTRY.counter("flight.events").inc()
 
     def tail(self, n: Optional[int] = None) -> List[dict]:
-        with self._lock:
-            events = list(self._ring)
+        # timed acquire: dump() may run under a signal handler that
+        # interrupted the thread holding the lock; then read unlocked,
+        # retrying a read a concurrent append invalidated
+        acquired = self._lock.acquire(timeout=1.0)
+        try:
+            if acquired:
+                events = list(self._ring)
+            else:
+                events = []
+                for _ in range(3):
+                    try:
+                        events = list(self._ring)
+                        break
+                    except RuntimeError:
+                        continue
+        finally:
+            if acquired:
+                self._lock.release()
         return events if n is None else events[-n:]
 
     def __len__(self) -> int:
         return len(self._ring)
+
+    def clear(self) -> None:
+        with self._lock:
+            self._ring.clear()
+
+    def dump(self, path: str) -> Optional[str]:
+        """Write the ring to `path` (atomic rename); returns the path, or
+        None on failure. Never raises: a SIGTERM flush must not die
+        building its own payload."""
+        try:
+            payload = json.dumps({"dumped_unix": round(time.time(), 3), "pid": os.getpid(),
+                                  "capacity": self.capacity, "events": self.tail()})
+        except Exception:
+            return None
+        tmp = f"{path}.{os.getpid()}.tmp"
+        try:
+            with open(tmp, "w") as fh:
+                fh.write(payload)
+            os.replace(tmp, path)
+        except Exception:
+            try:
+                os.unlink(tmp)
+            except OSError:
+                pass
+            return None
+        REGISTRY.counter("flight.dumps").inc()
+        return path
 
 
 FLIGHT = FlightRecorder()
@@ -450,3 +643,73 @@ def flight(kind: str, trace: Optional[TraceContext] = None, **attrs) -> None:
     """Record one flight-recorder event (tags the active, or the passed,
     trace context)."""
     FLIGHT.record(kind, trace=trace, **attrs)
+
+
+def flight_sidecar_path(metrics_path: str) -> str:
+    """The flight sidecar beside a metrics sidecar (``X.metrics.json``
+    -> ``X.flight.json``)."""
+    if metrics_path.endswith(".metrics.json"):
+        return metrics_path[: -len(".metrics.json")] + ".flight.json"
+    return metrics_path + ".flight.json"
+
+
+# ------------------------------------------------------------ sidecar
+
+
+_sidecar_lock = threading.Lock()
+_sidecar_path: Optional[str] = None
+_sidecar_installed = False
+
+
+def flush_sidecar(path: Optional[str] = None) -> Optional[str]:
+    """Write the registry snapshot to the sidecar JSON (atomic rename)
+    and the flight ring to the derived ``*.flight.json``. Safe from
+    signal handlers; returns the metrics path written, or None when no
+    path is configured or the write failed."""
+    p = path or _sidecar_path
+    if not p:
+        return None
+    payload = REGISTRY.to_json()
+    acquired = _sidecar_lock.acquire(timeout=2.0)  # may run under a signal
+    try:
+        tmp = f"{p}.{os.getpid()}.tmp"
+        try:
+            with open(tmp, "w") as fh:
+                fh.write(payload)
+            os.replace(tmp, p)
+        except Exception:
+            try:
+                os.unlink(tmp)
+            except OSError:
+                pass
+            return None
+    finally:
+        if acquired:
+            _sidecar_lock.release()
+    FLIGHT.dump(flight_sidecar_path(p))
+    return p
+
+
+def install_sidecar(path: str,
+                    signals: Sequence[int] = (signal.SIGTERM, signal.SIGINT)) -> None:
+    """Flush a metrics sidecar at normal exit and on SIGTERM/SIGINT; the
+    handlers then re-raise the signal with its default disposition, so
+    the exit code still reflects the kill."""
+    global _sidecar_path, _sidecar_installed
+    _sidecar_path = path
+    if _sidecar_installed:
+        return
+    _sidecar_installed = True
+    atexit.register(flush_sidecar)
+
+    def _on_signal(signum, frame):
+        REGISTRY.set_meta("killed_by_signal", signum)
+        flush_sidecar()
+        signal.signal(signum, signal.SIG_DFL)
+        os.kill(os.getpid(), signum)
+
+    for sig in signals:
+        try:
+            signal.signal(sig, _on_signal)
+        except (ValueError, OSError):
+            pass  # not the main thread, or an unsupported platform

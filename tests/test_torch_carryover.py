@@ -153,8 +153,15 @@ for need in ("parallel.sharding", "crypto.sign", "crypto.batch_sign", "utils.dev
              "services.ttxdb", "services.ttxdb.db", "services.auditor",
              "services.auditor.auditor", "services.owner", "services.owner.owner",
              "services.query", "services.query.query", "services.certifier",
-             "services.certifier.certifier", "services.nfttx", "services.nfttx.nft"):
+             "services.certifier.certifier", "services.nfttx", "services.nfttx.nft",
+             "services.network.remote", "services.network.replication", "utils.sysmon",
+             "ops.warmup", "cmd.ftswarmup", "crypto.o2omp", "crypto.credential"):
     assert port.__name__ + "." + need in names, need
+# memory sampling reads the card only where CUDA is already in use
+from fabric_token_sdk_tpu_torch.utils import sysmon
+import torch
+assert sysmon.sample()["device_bytes"] is None
+assert not torch.cuda.is_initialized()
 """
     env = dict(os.environ, PYTHONPATH=os.path.abspath(ROOT))
     res = subprocess.run([sys.executable, "-c", code], cwd=ROOT, env=env,

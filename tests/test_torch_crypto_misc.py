@@ -1,8 +1,9 @@
 """PyTorch port, the host protocols above the kernels: nym signatures,
 identity signatures (`pk`, `nym`, `htlc`), the auditor check, the issue
-proof, the quantity model and HTLC scripts, each mirroring its JAX
-package test and held byte for byte against the JAX package for one
-seed, each package verifying the other's bytes."""
+proof, one-out-of-many proofs (`crypto/o2omp.py`), the quantity model and
+HTLC scripts, each mirroring its JAX package test and held byte for byte
+against the JAX package for one seed, each package verifying the other's
+bytes."""
 
 import hashlib
 import importlib
@@ -13,7 +14,7 @@ from types import SimpleNamespace
 import pytest
 
 from fabric_token_sdk_tpu_torch.crypto import audit, hostmath as hm, issue as issue_mod
-from fabric_token_sdk_tpu_torch.crypto import nym, pedersen, sign, token as tok
+from fabric_token_sdk_tpu_torch.crypto import nym, o2omp, pedersen, sign, token as tok
 from fabric_token_sdk_tpu_torch.crypto.setup import setup
 from fabric_token_sdk_tpu_torch.drivers import identity
 from fabric_token_sdk_tpu_torch.models.quantity import Quantity
@@ -21,8 +22,9 @@ from fabric_token_sdk_tpu_torch.services.interop import htlc
 
 
 def _package(root):
-    mods = ("crypto.audit", "crypto.hostmath", "crypto.issue", "crypto.nym", "crypto.pedersen",
-            "crypto.setup", "crypto.sign", "crypto.token", "drivers.identity")
+    mods = ("crypto.audit", "crypto.hostmath", "crypto.issue", "crypto.nym", "crypto.o2omp",
+            "crypto.pedersen", "crypto.setup", "crypto.sign", "crypto.token",
+            "drivers.identity")
     return SimpleNamespace(root=root, **{
         m.split(".")[1]: importlib.import_module(f"{root}.{m}") for m in mods})
 
@@ -37,6 +39,34 @@ def pp():
 
 
 # ------------------------------------------------------------------ mirrors
+
+def test_o2omp_roundtrip(rng):
+    ped = [hm.rand_g1(rng), hm.rand_g1(rng)]
+    nbits = 3
+    index = 5
+    r = hm.rand_zr(rng)
+    commitments = [hm.rand_g1(rng) for _ in range(1 << nbits)]
+    commitments[index] = hm.g1_mul(ped[1], r)  # a commitment to 0
+    raw = o2omp.Prover(commitments, b"msg", ped, nbits, index, r, rng).prove()
+    o2omp.Verifier(commitments, b"msg", ped, nbits).verify(raw)
+    with pytest.raises(ValueError):
+        o2omp.Verifier(commitments, b"other", ped, nbits).verify(raw)
+    commitments[index] = hm.rand_g1(rng)
+    with pytest.raises(ValueError):
+        o2omp.Verifier(commitments, b"msg", ped, nbits).verify(raw)
+
+
+def test_o2omp_malformed_proof_rejected_not_crash(rng):
+    """Garbage bytes raise ValueError, never TypeError/KeyError (the
+    o2omp half of `tests/test_crypto_misc.py:76`)."""
+    from fabric_token_sdk_tpu_torch.crypto.serialization import dumps
+
+    ped = [hm.rand_g1(rng), hm.rand_g1(rng)]
+    v = o2omp.Verifier([hm.rand_g1(rng) for _ in range(4)], b"m", ped, 2)
+    for garbage in [b"not json", dumps({"L": [5], "A": []}), dumps({"x": 1})]:
+        with pytest.raises(ValueError):
+            v.verify(garbage)
+
 
 def test_nym_signature(rng):
     params = [hm.rand_g1(rng), hm.rand_g1(rng)]
@@ -201,3 +231,23 @@ def test_issue_proof_bytes_equal_across_packages(both_pp, anonymous):
         P.issue.IssueVerifier(tokens, anonymous, pp).verify(raw)
         with pytest.raises(ValueError):
             P.issue.IssueVerifier(tokens[::-1], anonymous, pp).verify(raw)
+
+
+def _o2omp_case(P, seed, nbits=3, index=5):
+    rng = random.Random(seed)
+    hm_ = P.hostmath
+    ped = [hm_.rand_g1(rng), hm_.rand_g1(rng)]
+    r = hm_.rand_zr(rng)
+    commitments = [hm_.rand_g1(rng) for _ in range(1 << nbits)]
+    commitments[index] = hm_.g1_mul(ped[1], r)
+    raw = P.o2omp.Prover(commitments, b"msg", ped, nbits, index, r, rng).prove()
+    return ped, commitments, raw
+
+
+def test_o2omp_bytes_equal_across_packages():
+    ped, commitments, raw = _o2omp_case(PORT, 8)
+    assert (ped, commitments, raw) == _o2omp_case(REF, 8)
+    for P in (REF, PORT):
+        P.o2omp.Verifier(commitments, b"msg", ped, 3).verify(raw)
+        with pytest.raises(ValueError):
+            P.o2omp.Verifier(commitments, b"msg", ped[::-1], 3).verify(raw)
