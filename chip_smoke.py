@@ -120,8 +120,8 @@ block of `Transaction.transfer`s proved on the host, one with a tampered
 proof that only the proof plane can reject (the proof plane once, the
 auditor signatures on the sign plane once), a 1,024-tx backlog of
 minted inputs in 16 groups of 64 (each selected by alice's selector and
-proved by one `transfer_many`) through `pipelined_submit` and again
-sequentially, then a redeem, a re-audited replay, an NFT issue and
+proved by one `transfer_many`) through `pipelined_submit`, and its
+first 4 groups again sequentially, then a redeem, a re-audited replay, an NFT issue and
 transfer, certification, the owner and query views and both vaults
 rebuilt from their journals. Statuses, balances, ttxdb and auditor rows
 and launch counts must be exact, with no host re-verification.
@@ -147,6 +147,25 @@ launches (over `ops.metrics`) as planned, no host re-verification. It
 prints each node's start-to-READY and warmup times, tx/s over the wire
 before and after the failover, the failover time, the ship wait a
 block and the probe latency during a block.
+
+The operator plane (`[ops]`, inside `[repl]`, on the promoted node
+before its orderly stop, no new node process): `ftstop devices
+HOST:PORT --once` run as a subprocess, `ftstop top --once`,
+`ftsmetrics show --prometheus` and `diff` over its `ops.metrics`
+snapshots; its `device` section must list every kernel it launched,
+each program's dispatches over planes equal to its
+`kernel.launches.<name>`, a device time by CUDA events above zero a
+program and the builds and loads of its warmup; `ftstrace timeline`
+stitches a post-failover transfer over this process's sidecar and the
+node's (flushed on SIGTERM) from the client's submit through the
+orderer's queue, the block's device verify and WAL to finality, and
+`export` writes it; `tokengen gen dlog --base 16 --exponent 2` writes
+parameters over which a `ZKATDLogDriver` builds its batched verifier on
+the card. In this process, on the range phase's warm verifier: the
+64-tx 2-in/2-out verify 9 times with the dispatch ledger on and 9 off,
+interleaved (the verdicts equal; the on median within 5% of the off
+median, or inside the off runs' spread), and each program's device time
+a dispatch by the ledger's events at the block's rows.
 
 Phases print one line each. Before the last line come the GPU's name
 and power limit as `nvidia-smi` reports them and one JSON object with
@@ -265,6 +284,9 @@ LADDERS = ("g1_mul", "g2_mul")  # the window ladder's kernels (csrc/bn254_ladder
 PS_SIGS = 64
 TTX_BLOCK = 16  # the [ttx] issue and transfer blocks' transactions
 TTX_GROUPS, TTX_GROUP = 16, 64  # the [ttx] backlog: groups of one transfer_many, a block each
+# the [ttx] backlog's second (sequential) run: its first groups only, a
+# depth cut that keeps the smoke inside its time with [ops] added
+TTX_SEQ_GROUPS = 4
 TTX_HOST_PROVE_BUDGET_S = 60.0  # the [ttx] transfer block's host proofs, at most
 # a [ttx] transfer block: the proof plane once, and the auditor's pk
 # signatures (one a request, at least `sign_min_batch`) on the sign plane once
@@ -944,8 +966,9 @@ def ttx_phase(pp, seed, prove_launches, block_launches, sign_launches, n_block=T
        store's own delta. A group is a builder: inputs by alice's
        selector, one `transfer_many` (`prove_launches`), the owner's
        signatures, the audit. Once through `pipelined_submit`, once on a
-       fresh restore with fresh parties as builders then `submit_many`;
-       one block a group (`block_launches`).
+       fresh restore with fresh parties as builders then `submit_many`
+       over the first `TTX_SEQ_GROUPS` groups; one block a group
+       (`block_launches`).
     4. The services: a redeem; a re-audited replay of a committed
        transfer under a fresh anchor (INVALID, "spent" or "exist"); an NFT
        issue and transfer; a certification, and the refused certification
@@ -1205,8 +1228,9 @@ def ttx_phase(pp, seed, prove_launches, block_launches, sign_launches, n_block=T
         owner_p.driver.transfer_many = timed_prove
 
     backlog = {}
-    moved = sum(sum(values_of(g)) for g in range(groups)) * group
     for run in ("pipelined", "sequential"):
+        n_groups = groups if run == "pipelined" else min(groups, TTX_SEQ_GROUPS)
+        moved = sum(sum(values_of(g)) for g in range(n_groups)) * group
         net_b = timed(f"backlog_{run}_restore", lambda: Network.restore(
             validator, snapshot, policy=policy, device=device))
         net_b.subscribe(auditor.on_finality)
@@ -1216,9 +1240,9 @@ def ttx_phase(pp, seed, prove_launches, block_launches, sign_launches, n_block=T
         b_b.wallets.owners["bob"] = bob
         a_b.vault.store.apply(VaultDelta("mint", stores=stores))
         time_proving(a_b, run[0])
-        builders = [builder(a_b, run[0], g) for g in range(groups)]
+        builders = [builder(a_b, run[0], g) for g in range(n_groups)]
         n_dev = len([e for e in mx.FLIGHT.tail() if e["kind"] == "verify.device"])
-        plan = times(plus(prove_launches, block_launches), groups)
+        plan = times(plus(prove_launches, block_launches), n_groups)
         if run == "pipelined":
             mx.gauge("ttx.pipeline.overlap_frac").set(-1.0)
             zero()
@@ -1237,11 +1261,11 @@ def ttx_phase(pp, seed, prove_launches, block_launches, sign_launches, n_block=T
             ms["backlog_sequential"] = (time.perf_counter() - t) * 1e3
         n_dev = len([e for e in mx.FLIGHT.tail() if e["kind"] == "verify.device"]) - n_dev
         got = [(e.tx_id, e.status.value) for evs in results for e in evs]
-        want = [(f"{run[0]}-g{g}-{j}", "Valid") for g in range(groups) for j in range(group)]
-        if got != want or net_b.height() != groups or n_dev != groups:
+        want = [(f"{run[0]}-g{g}-{j}", "Valid") for g in range(n_groups) for j in range(group)]
+        if got != want or net_b.height() != n_groups or n_dev != n_groups:
             bad = [(x, y) for x, y in zip(got, want) if x != y]
             fail(f"[ttx] backlog {run}: {len(bad)} statuses differ ({bad[:2]}), "
-                 f"{net_b.height()} blocks, {n_dev} batched verifies, expected {groups}")
+                 f"{net_b.height()} blocks, {n_dev} batched verifies, expected {n_groups}")
         if (a_b.balance("USD"), b_b.balance("USD")) != (n_mint * sum(in_vals) - moved, moved):
             fail(f"[ttx] backlog {run}: balances {a_b.balance('USD')}, {b_b.balance('USD')}")
         if a_b.selectors.locker.locked_count() or any(
@@ -1339,7 +1363,7 @@ def ttx_phase(pp, seed, prove_launches, block_launches, sign_launches, n_block=T
               backlog_last=backlog, launches=launches, breakers=states,
               sign_rows=delta("batch.sign.rows"), batched=delta("ledger.validate.batched"),
               host=delta("ledger.validate.host"), groups=groups, group=group,
-              issue_block_txs=len(issues))
+              seq_groups=min(groups, TTX_SEQ_GROUPS), issue_block_txs=len(issues))
     return ms
 
 
@@ -1366,8 +1390,9 @@ def ttx_line(ms: dict) -> str:
         f"{ms['backlog_mint']:.1f} ms): pipelined_submit {ms['backlog_pipelined']:.1f} ms "
         f"({ms['backlog_pipelined_txs_per_s']:.1f} tx/s, ttx.pipeline.overlap_frac "
         f"{ms['overlap_frac']}, transfer_many {statistics.median(tm) if tm else 0:.1f} ms a "
-        f"group), sequential {ms['backlog_sequential']:.1f} ms "
-        f"({ms['backlog_sequential_txs_per_s']:.1f} tx/s), last block breakdown (ms) "
+        f"group), sequential over the first {ms['seq_groups']} groups "
+        f"{ms['backlog_sequential']:.1f} ms ({ms['backlog_sequential_txs_per_s']:.1f} tx/s), "
+        f"last block breakdown (ms) "
         f"pipelined {bd(ms['backlog_last']['pipelined'])} sequential "
         f"{bd(ms['backlog_last']['sequential'])}; services (redeem, replay, NFT, "
         f"certification, owner and query views, vault rebuilds) {ms['services']:.1f} ms. "
@@ -1399,8 +1424,11 @@ def repl_node(role: str, work: str, port: int, peer: str, device, block: int,
     follower is streaming (bootstrapped); the follower starts empty and
     attaches as a follower. Prints `READY <port> <json>` (its times and the
     extensions built and loaded), then serves until SIGTERM (an orderly
-    stop) or SIGKILL. A node without CUDA, or whose build fails, exits
-    non-zero."""
+    stop, which flushes its metrics and flight sidecars to
+    `DIR/<role>.metrics.json` and `.flight.json` for `[ops]`) or
+    SIGKILL. Spans are on, and a `Heartbeat` records the node's phases
+    (warmup, tables, serve). A node without CUDA, or whose build fails,
+    exits non-zero."""
     import signal
     import socket
     import threading
@@ -1419,14 +1447,20 @@ def repl_node(role: str, work: str, port: int, peer: str, device, block: int,
         BlockPolicy, LedgerServer, Network, replication,
     )
     from fabric_token_sdk_tpu_torch.services.network.remote import _recv_msg, _send_msg
+    from fabric_token_sdk_tpu_torch.utils import metrics as mx
 
     t_import = time.perf_counter() - t_start
+    mx.enable(True)  # spans, for the post-failover trace [ops] stitches
+    mx.REGISTRY.set_meta("entry", f"chip_smoke --repl-node {role}")
+    heartbeat = mx.Heartbeat(tag=f"fts-{role}", interval_s=60.0).start()
     with open(os.path.join(work, "pp.bin"), "rb") as fh:
         pp = PublicParams.deserialize(fh.read())
     validator = RequestValidator(ZKATDLogDriver(pp, device=device))
+    heartbeat.set_phase("warmup")
     t = time.perf_counter()
     summary = wu.warmup(device=device, include_pairing=pairing)
     warm_s = time.perf_counter() - t
+    heartbeat.set_phase("tables", programs=summary["programs"])
     t = time.perf_counter()
     validator.driver.batch_verifier()  # its tables, off the first block
     verifier_s = time.perf_counter() - t
@@ -1458,7 +1492,10 @@ def repl_node(role: str, work: str, port: int, peer: str, device, block: int,
             if time.monotonic() > deadline:
                 fail(f"[repl] leader: the link never streamed: {state.shipper.link_states()}")
             time.sleep(0.02)
-    signal.signal(signal.SIGTERM, lambda *_: (server.stop(), os._exit(0)))
+    heartbeat.set_phase("serve")
+    sidecar = os.path.join(work, f"{role}.metrics.json")
+    signal.signal(signal.SIGTERM, lambda *_: (server.stop(), heartbeat.stop(),
+                                               mx.flush_sidecar(sidecar), os._exit(0)))
     print("READY", server.address[1], json.dumps({
         "role": role, "pid": os.getpid(), "device": str(net.device), "height": net.height(),
         "import_s": t_import, "warmup_s": warm_s, "verifier_s": verifier_s,
@@ -1517,6 +1554,7 @@ def repl_phase(pp, ctx, range_launches, sign_launches, block=BLOCK_TXS, n_issue=
     from fabric_token_sdk_tpu_torch.drivers.zkatdlog import ZKATDLogDriver
     from fabric_token_sdk_tpu_torch.ops import _build
     from fabric_token_sdk_tpu_torch.services.network import Network, RemoteNetwork
+    from fabric_token_sdk_tpu_torch.utils import metrics as mx
 
     ms = {}
     t_phase = time.perf_counter()
@@ -1766,7 +1804,14 @@ def repl_phase(pp, ctx, range_launches, sign_launches, block=BLOCK_TXS, n_issue=
         t = time.perf_counter()
         t_first = None
         for g in range(kill_group + 1, len(groups)):
-            record(g, submit(g))
+            traced = g == len(groups) - 1  # [ops] stitches a tx of the last group
+            mx.enable(traced)
+            try:
+                record(g, submit(g))
+            finally:
+                mx.enable(False)
+            if traced:
+                mx.flush_sidecar(os.path.join(work, "client.metrics.json"))
             if t_first is None:
                 t_first = time.perf_counter()
         blocks_new = len(groups) - kill_group - 1
@@ -1815,6 +1860,9 @@ def repl_phase(pp, ctx, range_launches, sign_launches, block=BLOCK_TXS, n_issue=
                 fail(f"[repl] {role}: device.mem.bytes {mem} (card {total})")
         if fh["repl"]["role"] != "leader" or fh["repl"]["epoch"] != 1:
             fail(f"[repl] the promoted node reports {fh['repl']}")
+        t_ops = time.perf_counter()
+        ms["ops"] = ops_node(follower_addr, to_follower, nodes["follower"], fsnap, work)
+        t_ops = time.perf_counter() - t_ops
         height = to_follower.height()
         for c in (client, to_leader, to_follower):
             c.close()
@@ -1823,6 +1871,10 @@ def repl_phase(pp, ctx, range_launches, sign_launches, block=BLOCK_TXS, n_issue=
         proc.send_signal(signal.SIGTERM)
         if proc.wait(timeout=60) != 0:
             fail(f"[repl] the follower stopped with {proc.returncode}:\n{tail('follower')}")
+        t = time.perf_counter()
+        ms["ops"].update(ops_trace(work, groups[-1][0].anchor,
+                                   (os.getpid(), nodes["follower"]["pid"])))
+        ms["ops"]["phase_s"] = t_ops + time.perf_counter() - t
     finally:
         for proc, err in procs.values():
             if proc.poll() is None:
@@ -1891,6 +1943,236 @@ def repl_line(ms: dict) -> str:
         f"{ms['recover_cpu_ms']:.1f} ms at height {ms['height']}; every acknowledged status "
         f"equals [ledger]'s, none lost or doubled, end state exact, no host re-verification; "
         f"phase {ms['phase'] / 1e3:.1f} s")
+
+
+OPS_RUNS = 9  # [ops]: the 64-tx verify with the ledger on, and off, interleaved
+OPS_PROGRAM_RUNS = 5  # [ops]: verifies for each program's ledger time at block rows
+OPS_MAX_COST = 0.05  # [ops]: the ledger on may cost this share of the verify's median, ...
+# ... or lie inside the off runs' own spread
+OPS_TRACE_NEEDLES = ("remote.submit", "orderer.queue", "network.validate", "critical path",
+                     "device_verify", "wal", "finality")
+
+
+def ledger_cost(verifier, txs, runs=OPS_RUNS, program_runs=OPS_PROGRAM_RUNS) -> dict:
+    """`[ops]` in this process: `runs` verifies of `txs` with the dispatch
+    ledger on and `runs` with it off, interleaved (on-off, then off-on),
+    verdicts equal throughout; then `program_runs` verifies alone, each
+    program's device time a dispatch by the ledger's event pairs (the
+    median over the runs) beside its dispatches and rows. Fails when
+    the on median exceeds the off median by more than `OPS_MAX_COST`
+    and lies outside the off runs' spread, or when a verify's dispatches
+    differ from its launches."""
+    import torch
+
+    from fabric_token_sdk_tpu_torch.ops import _build
+    from fabric_token_sdk_tpu_torch.utils import devobs
+
+    walls = {True: [], False: []}
+    want = None
+    before = {k.name: k.launches for k in _build.ALL_KERNELS}
+    try:
+        for i in range(runs):
+            for on in ((True, False) if i % 2 == 0 else (False, True)):
+                devobs.enable(on)
+                t = time.perf_counter()
+                got = verifier.verify(txs)
+                torch.cuda.synchronize()
+                walls[on].append(time.perf_counter() - t)
+                want = got if want is None else want
+                if list(got) != list(want):
+                    fail(f"[ops] the verdicts moved with the ledger {'on' if on else 'off'}")
+    finally:
+        devobs.enable(True)
+    launches = {k.name: k.launches - before[k.name] for k in _build.ALL_KERNELS}
+    on_med, off_med = statistics.median(walls[True]), statistics.median(walls[False])
+    if on_med > off_med * (1 + OPS_MAX_COST) and on_med > max(walls[False]):
+        fail(f"[ops] the ledger costs the verify {100 * (on_med / off_med - 1):.1f}%: median "
+             f"{on_med * 1e3:.1f} ms on, {off_med * 1e3:.1f} off (off runs "
+             f"{min(walls[False]) * 1e3:.1f}-{max(walls[False]) * 1e3:.1f} ms)")
+    per_run = {}
+    for _ in range(program_runs):
+        devobs.reset()
+        before = {k.name: k.launches for k in _build.ALL_KERNELS}
+        verifier.verify(txs)
+        torch.cuda.synchronize()
+        snap = devobs.snapshot()
+        if {prog for pl, prog in snap} != {k for k, v in launches.items() if v} or any(
+                pl != "verify" for pl, _prog in snap):
+            fail(f"[ops] a verify's ledger frames {sorted(snap)}")
+        for (_pl, prog), e in snap.items():
+            n = next(k for k in _build.ALL_KERNELS if k.name == prog).launches - before[prog]
+            if e["dispatches"] != n:
+                fail(f"[ops] {prog}: {e['dispatches']} dispatches, {n} launches")
+            per_run.setdefault(prog, []).append((e["wall_s"] * 1e3 / e["dispatches"],
+                                                 e["rows"] // e["dispatches"], e["dispatches"]))
+    devobs.reset()
+    programs = {prog: {"ms": statistics.median(r[0] for r in runs_), "rows": runs_[0][1],
+                       "dispatches": runs_[0][2], "ms_min": min(r[0] for r in runs_),
+                       "ms_max": max(r[0] for r in runs_)}
+                for prog, runs_ in per_run.items()}
+    return {"on_ms": [w * 1e3 for w in walls[True]], "off_ms": [w * 1e3 for w in walls[False]],
+            "on_median_ms": on_med * 1e3, "off_median_ms": off_med * 1e3,
+            "cost_frac": on_med / off_med - 1, "launches": launches, "programs": programs}
+
+
+def ops_node(addr, remote_net, node: dict, snap_before: dict, work: str) -> dict:
+    """`[ops]` against the promoted node, before its orderly stop, with no
+    new node process: `ftstop devices HOST:PORT --once` as an operator
+    runs it (a subprocess), `top --once`, `ftsmetrics show --prometheus`
+    and `diff` (its `ops.metrics` snapshots before and after) in this
+    process; its `device` section: every kernel it launched listed, each
+    program's dispatches over planes equal to `kernel.launches.<name>`,
+    a p50 by events above zero a program, the builds and loads equal to
+    its warmup's `built`/`loaded`; `tokengen gen dlog --base 16
+    --exponent 2` and a `ZKATDLogDriver` over those parameters building
+    its batched verifier on the card. Returns the times and counts."""
+    import io
+
+    from fabric_token_sdk_tpu_torch.cmd import ftsmetrics, ftstop, tokengen
+    from fabric_token_sdk_tpu_torch.crypto.setup import PublicParams
+    from fabric_token_sdk_tpu_torch.drivers.zkatdlog import ZKATDLogDriver
+    from fabric_token_sdk_tpu_torch.ops import _build
+
+    ms = {}
+    target = f"{addr[0]}:{addr[1]}"
+
+    def captured(fn, *a):
+        out = io.StringIO()
+        with contextlib.redirect_stdout(out):
+            rc = fn(*a)
+        return rc, out.getvalue()
+
+    t = time.perf_counter()
+    res = subprocess.run([sys.executable, "-m", "fabric_token_sdk_tpu_torch.cmd.ftstop",
+                          "devices", target, "--once"], cwd=ROOT, capture_output=True,
+                         text=True, timeout=300)
+    ms["ftstop_devices_s"] = time.perf_counter() - t
+    if res.returncode != 0:
+        fail(f"[ops] ftstop devices exited {res.returncode}: {res.stderr[-2000:]}")
+    listed = {line.split()[1] for line in res.stdout.strip().splitlines()[2:]}
+    health, snap = remote_net.ops_health(), remote_net.ops_metrics()
+    dev = health["device"]
+    counts = {k.name: snap["counters"].get(f"kernel.launches.{k.name}", 0)
+              for k in _build.ALL_KERNELS}
+    dispatched, p50 = {}, {}
+    for row in dev["programs"].values():
+        if row["dispatches"]:
+            dispatched[row["program"]] = dispatched.get(row["program"], 0) + row["dispatches"]
+            if not (row["p50_s"] and row["p50_s"] > 0 and row["wall_s"] > 0):
+                fail(f"[ops] {row['plane']}:{row['program']} has no device time: {row}")
+            p50[f"{row['plane']}:{row['program']}"] = row["p50_s"] * 1e3
+    launched = {k: v for k, v in counts.items() if v}
+    if dispatched != launched:
+        fail(f"[ops] the node's ledger dispatches {dispatched}, its kernels launched {launched}")
+    if not set(launched) <= listed:
+        fail(f"[ops] ftstop devices lists {sorted(listed)}, the node launched {sorted(launched)}")
+    progs = dev["programs"].values()
+    builds = (sum(r["compiles"] for r in progs),
+              sum(r["cache_hits"] + r["cache_misses"] for r in progs))
+    if builds != (node["built"], node["loaded"]):
+        fail(f"[ops] the ledger's builds/loads {builds}, warmup's {node['built']}/{node['loaded']}")
+    ms.update(dispatches=dispatched, p50_ms=p50, planes=sorted(dev["planes"]),
+              builds=builds, device_name=dev["name"])
+    rc, out = captured(ftstop.main, ["top", target, "--once"])
+    if rc != 0 or "repl=leader@e1" not in out or "dev_mem=" not in out:
+        fail(f"[ops] ftstop top: rc {rc}, {out!r}")
+    paths = []
+    for name, doc in (("ops_a", snap_before), ("ops_b", snap)):
+        paths.append(os.path.join(work, f"{name}.metrics.json"))
+        with open(paths[-1], "w") as fh:
+            json.dump(doc, fh)
+    rc, prom = captured(ftsmetrics.main, ["show", "--prometheus", paths[1]])
+    for needle in ("# TYPE fts_device_dispatch_seconds histogram",
+                   "fts_device_dispatch_seconds_p50", "fts_kernel_launches_miller ",
+                   "fts_device_verify_occupancy_count"):
+        if rc != 0 or needle not in prom:
+            fail(f"[ops] ftsmetrics show --prometheus: rc {rc}, no {needle!r}")
+    rc, diff = captured(ftsmetrics.main, ["diff", *paths])  # the ops calls served between
+    if rc != 0 or not diff.startswith("== ") or "remote.server.dispatch.seconds" not in diff:
+        fail(f"[ops] ftsmetrics diff: rc {rc}, {diff[:500]!r}")
+    ms["prometheus_lines"] = len(prom.splitlines())
+    arts = os.path.join(work, "arts")
+    t = time.perf_counter()
+    rc, _ = captured(tokengen.main, ["gen", "dlog", "--output", arts, "--base", "16",
+                                     "--exponent", "2", "--seed", "7"])
+    ms["tokengen_s"] = time.perf_counter() - t
+    with open(os.path.join(arts, "zkatdlog_pp.json"), "rb") as fh:
+        pp2 = PublicParams.deserialize(fh.read())
+    pp2.validate()
+    t = time.perf_counter()
+    v = ZKATDLogDriver(pp2).batch_verifier()
+    ms["tokengen_verifier_s"] = time.perf_counter() - t
+    if v.device.type != "cuda":
+        fail(f"[ops] the driver over tokengen's parameters verifies on {v.device}")
+    return ms
+
+
+def ops_trace(work: str, tx: str, pids: tuple) -> dict:
+    """`[ops]` after the promoted node's orderly stop: `ftstrace timeline`
+    stitches `tx` (a post-failover transfer) from this process's sidecar
+    and the node's, flushed on SIGTERM (client submit, orderer queue,
+    validation, the block's critical path with its device verify, WAL,
+    finality), each side's spans present; `export` writes Chrome trace
+    events; `ftsmetrics show` prints the node's heartbeat phases."""
+    import io
+
+    from fabric_token_sdk_tpu_torch.cmd import ftsmetrics, ftstrace
+
+    paths = [os.path.join(work, f"{side}.{kind}.json") for side in ("client", "follower")
+             for kind in ("metrics", "flight")]
+    for p in paths:
+        if not os.path.exists(p):
+            fail(f"[ops] no sidecar {os.path.basename(p)}")
+    out = io.StringIO()
+    with contextlib.redirect_stdout(out):
+        rc = ftstrace.main(["timeline", tx, *paths])
+        rc_x = ftstrace.main(["export", "-o", os.path.join(work, "trace.json"), *paths])
+        rc_m = ftsmetrics.main(["show", paths[2]])
+    text = out.getvalue()
+    timeline = text.split("\n== ")[0] if text.startswith("== trace") else text
+    missing = [n for n in OPS_TRACE_NEEDLES if n not in timeline]
+    if rc != 0 or missing:
+        fail(f"[ops] ftstrace timeline {tx}: rc {rc}, missing {missing}:\n{timeline[-3000:]}")
+    sides = [p for p in pids if f"pid={p} " in timeline or f"pid={p}]" in timeline]
+    if len(sides) != 2:
+        fail(f"[ops] the timeline of {tx} holds the spans of pids {sides} of {list(pids)}")
+    with open(os.path.join(work, "trace.json")) as fh:
+        events = len(json.load(fh)["traceEvents"])
+    if rc_x != 0 or not events:
+        fail(f"[ops] ftstrace export: rc {rc_x}, {events} events")
+    if rc_m != 0 or "\nphases\n" not in text or " serve " not in text or " warmup " not in text:
+        fail("[ops] ftsmetrics show: no heartbeat phases in the node's sidecar")
+    return {"timeline_rows": sum(1 for line in timeline.splitlines() if line.startswith("  +")),
+            "export_events": events}
+
+
+def ops_cost_line(cost: dict) -> str:
+    """The `[ops]` measurements in this process as one line."""
+    progs = "; ".join(f"{p} {v['ms']:.4f} ms ({v['ms_min']:.4f}-{v['ms_max']:.4f}) x "
+                      f"{v['dispatches']} at {v['rows']} rows"
+                      for p, v in sorted(cost["programs"].items()))
+    return (
+        f"64-tx 2-in/2-out verify, {len(cost['on_ms'])} runs each, interleaved: ledger on "
+        f"median {cost['on_median_ms']:.1f} ms ({min(cost['on_ms']):.1f}-"
+        f"{max(cost['on_ms']):.1f}), off {cost['off_median_ms']:.1f} ms "
+        f"({min(cost['off_ms']):.1f}-{max(cost['off_ms']):.1f}): "
+        f"{100 * cost['cost_frac']:+.1f}%, verdicts equal; each program's device time a "
+        f"dispatch by the ledger's events at the block's rows (median of {OPS_PROGRAM_RUNS} "
+        f"verifies): {progs}")
+
+
+def ops_node_line(node: dict) -> str:
+    """The `[ops]` checks on the promoted node as one line."""
+    return (
+        f"the promoted node: ftstop devices (a subprocess) {node['ftstop_devices_s']:.1f} s, "
+        f"dispatches over planes {node['planes']} equal to kernel.launches {node['dispatches']}, "
+        f"p50 by events (ms) {{{', '.join(f'{k}: {v:.4f}' for k, v in node['p50_ms'].items())}}}"
+        f", builds/loads {node['builds']} as warmup's; ftstop top, ftsmetrics show --prometheus "
+        f"({node['prometheus_lines']} lines) and diff; ftstrace timeline of a post-failover tx "
+        f"over the client's and the node's sidecars, {node['timeline_rows']} rows, export "
+        f"{node['export_events']} events; tokengen dlog {node['tokengen_s']:.2f} s, its "
+        f"driver's verifier on the card {node['tokengen_verifier_s']:.2f} s; phase "
+        f"{node['phase_s']:.1f} s")
 
 
 def main() -> int:
@@ -2539,6 +2821,11 @@ def main() -> int:
     want_names = sorted(n for n, c in RANGE_LAUNCHES.items() for _ in range(c))
     if sorted(names) != want_names:
         fail(f"profiled 2-in/2-out verify launched {sorted(names)}")
+    # [ops] here, on the warm verifier: the dispatch ledger's cost and times
+    ops_cost = ledger_cost(verifier, rblock)
+    if ops_cost["launches"] != {k: v * 2 * OPS_RUNS for k, v in RANGE_LAUNCHES.items()}:
+        fail(f"[ops] the ledger's verifies launched {ops_cost['launches']}")
+    say("ops", ops_cost_line(ops_cost) + f" [{card}]")
 
     # ---------------------------------------------------------------- prove
     def prove_reqs(count, in_vals, out_vals):
@@ -3394,6 +3681,7 @@ def main() -> int:
     repl_ms = repl_phase(pp, drivers_ctx, RANGE_LAUNCHES, SIGN_LAUNCHES)
     say("repl", repl_line(repl_ms) + f"; planned: each issue block {SIGN_LAUNCHES}, each "
         f"transfer block {RANGE_LAUNCHES} [{card}]")
+    say("ops", ops_node_line(repl_ms["ops"]) + f" [{card}]")
 
     # ---------------------------------------------------------------- report
     kernels = []
@@ -3511,6 +3799,11 @@ def main() -> int:
                 row[f"launches_ttx_{key}"] = ttx_ms["launches"][key][row["name"]]
             for node, counts in repl_ms["launches"].items():
                 row[f"launches_repl_{node}"] = counts[row["name"]]
+            row["launches_ops_verify"] = ops_cost["launches"][row["name"]]
+            row["launches_ops_node"] = repl_ms["ops"]["dispatches"].get(row["name"], 0)
+        if row["name"] in ops_cost["programs"]:
+            v = ops_cost["programs"][row["name"]]
+            row.update(ledger_ms_block=v["ms"], ledger_rows_block=v["rows"])
     print(json.dumps({
         "range_verify_median_ms": {str(k): v * 1e3 for k, v in range_medians.items()},
         "prove_median_ms": {str(k): v * 1e3 for k, v in prove_medians.items()},
@@ -3520,7 +3813,9 @@ def main() -> int:
         "drivers_ms": drivers_ms,
         "ledger_ms": {k: v for k, v in ledger_ms.items() if k != "launches"},
         "ttx_ms": {k: v for k, v in ttx_ms.items() if k != "launches"},
-        "repl_ms": {k: v for k, v in repl_ms.items() if k != "launches"},
+        "repl_ms": {k: v for k, v in repl_ms.items() if k not in ("launches", "ops")},
+        "ops": {"cost": {k: v for k, v in ops_cost.items() if k != "launches"},
+                "node": repl_ms["ops"]},
         "build_s": t_build}), flush=True)
     print(card, flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)

@@ -34,6 +34,7 @@ from .setup import PublicParams
 from .transfer import TransferProof
 from .wellformedness import TransferWF, challenge_transfer_wf
 from ..ops import curve as cv, curve2 as cv2, limbs as lb, pairing as pr, stages as st, tower as tw
+from ..utils import devobs
 from ..utils import metrics as mx
 
 
@@ -49,12 +50,18 @@ def resolve_device(device=None) -> torch.device:
 
 
 def _spanned(name):
-    """Wrap a verify method in a metrics span (no-op when disabled)."""
+    """Wrap a verify method in a metrics span (no-op when disabled) and
+    a dispatch-ledger plane tag (`utils/devobs.py`): every kernel launch
+    the method makes is ledgered under the plane named by the span's
+    middle token (`batch.sign.verify` -> `sign`, every other
+    `batch.*.verify` -> `verify`)."""
+    middle = name.split(".")[1] if "." in name else name
+    plane = middle if middle in ("sign", "prove") else "verify"
 
     def deco(fn):
         @functools.wraps(fn)
         def wrapper(*args, **kw):
-            with mx.span(name):
+            with devobs.plane(plane), mx.span(name):
                 return fn(*args, **kw)
 
         return wrapper

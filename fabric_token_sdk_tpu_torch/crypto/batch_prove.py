@@ -39,6 +39,7 @@ from .pedersen import BatchedPedersen
 from .setup import PublicParams
 from .transfer import TransferProof, _skip_range
 from ..ops import curve as cv, curve2 as cv2, limbs as lb, pairing as pr, stages as st, tower as tw
+from ..utils import devobs
 from ..utils import metrics as mx
 
 
@@ -249,7 +250,8 @@ class BatchedTransferProver(torch.nn.Module):
         if not reqs:
             return []
         n_in, n_out = self._check_shapes(reqs)
-        with mx.span("batch.prove", txs=len(reqs), shape=f"({n_in},{n_out})"):
+        with devobs.plane("prove"), mx.span("batch.prove", txs=len(reqs),
+                                            shape=f"({n_in},{n_out})"):
             with mx.span("batch.prove.wf"):
                 wfs = self._prove_wf(reqs, n_in, n_out, rng)
             if _skip_range(n_in, n_out):

@@ -9,6 +9,9 @@ stale library is never loaded. A missing `nvcc`, a failed build or a
 failed launch raises: there is no fallback to the plain torch versions
 for tensors on the card.
 
+Each build and each load of an existing library is reported to the
+dispatch ledger (`utils/devobs.py`) against the active program.
+
 `Kernel` holds one entry point and its launch count. The count grows by
 one per launch and nowhere else, so a run can show that its path went
 through the kernel.
@@ -26,6 +29,8 @@ import time
 from typing import Dict, List, Optional
 
 import torch
+
+from ..utils import devobs
 
 _HERE = os.path.dirname(os.path.abspath(__file__))
 CSRC = os.path.join(os.path.dirname(_HERE), "csrc")
@@ -103,8 +108,16 @@ def build_all() -> Dict[str, ctypes.CDLL]:
             os.replace(tmp, path)
         if failed:
             raise RuntimeError("CUDA kernel build failed:\n" + "\n".join(failed))
+        built = {src for src, _, _, _ in procs}
         for src in todo:
             _libs[src] = ctypes.CDLL(_lib_path(src))
+            # the dispatch ledger's compile and cache fields: a build is a
+            # compile and a miss, a library _build/ already held a hit
+            if src in built:
+                devobs.note_compile(BUILD_SECONDS[src])
+                devobs.note_cache("cache_misses")
+            else:
+                devobs.note_cache("cache_hits")
         return dict(_libs)
 
 

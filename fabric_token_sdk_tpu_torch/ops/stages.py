@@ -9,7 +9,9 @@ Where the tensors lie decides the route: on a CUDA device the wrapper
 launches its hand-written kernel (`csrc/`, built by `ops/_build.py`) or
 raises; on the CPU it runs the kernel's plain torch version, defined
 beside it here. `chip_smoke.py` holds each kernel against its plain
-version on the card.
+version on the card. Either route runs inside a dispatch frame of the
+ledger (`utils/devobs.py`) named by the kernel: one dispatch a launch,
+its rows, its plane, and on the card its time by CUDA events.
 
 Layouts: G1 points (N, 3, 8) Montgomery Jacobian words, G1 affine
 (N, 2, 8); G2 points (N, 3, 2, 8), G2 affine (N, 2, 2, 8); Fp12/GT
@@ -28,12 +30,14 @@ from ._build import (
     G2_TO_AFFINE, GT_PRODUCT, GT_PRODUCT_FINAL_EXP, MILLER, PAIRING_PRODUCT, check_cuda_tensor,
 )
 from .field import FP, half_to_words, words_to_half
-from ..utils import metrics as mx, sysmon
+from ..utils import devobs, metrics as mx, sysmon
 
 
 def _route(kernel_name: str, *tensors: torch.Tensor) -> bool:
     """True to launch the CUDA kernel, False for the plain version; raises
-    on an empty batch or on tensors spread over devices."""
+    on an empty batch or on tensors spread over devices. The caller then
+    runs either inside a `devobs.dispatch` frame named by its kernel, on
+    the tensors' device."""
     n = tensors[-1].shape[0]
     if n == 0:
         raise ValueError(f"{kernel_name}: empty row batch (caller must guard)")
@@ -68,16 +72,18 @@ def _msm_rows(kernel, plain, table: torch.Tensor, scalars: torch.Tensor) -> torc
     if table.shape[0] != nbases * cv.DIGITS_PER_SCALAR:
         raise ValueError(f"{kernel.name}: table of {table.shape[0] // cv.DIGITS_PER_SCALAR} "
                          f"bases for {nbases} scalars a row")
-    if not _route(kernel.name, table, scalars):
-        return plain(table, scalars)
     n = scalars.shape[0]
-    check_cuda_tensor(f"{kernel.name} table", table,
-                      (nbases * cv.DIGITS_PER_SCALAR, cv.WINDOW_SIZE, 3, lb.NWORDS))
-    check_cuda_tensor(f"{kernel.name} scalars", scalars, (n, nbases, lb.NWORDS))
-    out = torch.empty((n, 3, lb.NWORDS), dtype=torch.int32, device=scalars.device)
-    with mx.span("stages.run", kernel=kernel.name, rows=n):
-        kernel.launch(scalars.device, table.data_ptr(), scalars.data_ptr(), out.data_ptr(), n,
-                      nbases)
+    card = _route(kernel.name, table, scalars)
+    with devobs.dispatch(kernel.name, rows=n, device=scalars.device):
+        if not card:
+            return plain(table, scalars)
+        check_cuda_tensor(f"{kernel.name} table", table,
+                          (nbases * cv.DIGITS_PER_SCALAR, cv.WINDOW_SIZE, 3, lb.NWORDS))
+        check_cuda_tensor(f"{kernel.name} scalars", scalars, (n, nbases, lb.NWORDS))
+        out = torch.empty((n, 3, lb.NWORDS), dtype=torch.int32, device=scalars.device)
+        with mx.span("stages.run", kernel=kernel.name, rows=n):
+            kernel.launch(scalars.device, table.data_ptr(), scalars.data_ptr(), out.data_ptr(),
+                          n, nbases)
     return out
 
 
@@ -103,14 +109,16 @@ def g1_mul_plain(points: torch.Tensor, scalars: torch.Tensor) -> torch.Tensor:
 
 def g1_mul_rows(points: torch.Tensor, scalars: torch.Tensor) -> torch.Tensor:
     """Variable-base scalar mul: (N, 3, 8) x (N, 8) canonical -> (N, 3, 8)."""
-    if not _route("g1_mul", points, scalars):
-        return g1_mul_plain(points, scalars)
     n = scalars.shape[0]
-    check_cuda_tensor("g1_mul points", points, (n, 3, lb.NWORDS))
-    check_cuda_tensor("g1_mul scalars", scalars, (n, lb.NWORDS))
-    out = torch.empty((n, 3, lb.NWORDS), dtype=torch.int32, device=points.device)
-    with mx.span("stages.run", kernel="g1_mul", rows=n):
-        G1_MUL.launch(points.device, points.data_ptr(), scalars.data_ptr(), out.data_ptr(), n)
+    card = _route("g1_mul", points, scalars)
+    with devobs.dispatch("g1_mul", rows=n, device=points.device):
+        if not card:
+            return g1_mul_plain(points, scalars)
+        check_cuda_tensor("g1_mul points", points, (n, 3, lb.NWORDS))
+        check_cuda_tensor("g1_mul scalars", scalars, (n, lb.NWORDS))
+        out = torch.empty((n, 3, lb.NWORDS), dtype=torch.int32, device=points.device)
+        with mx.span("stages.run", kernel="g1_mul", rows=n):
+            G1_MUL.launch(points.device, points.data_ptr(), scalars.data_ptr(), out.data_ptr(), n)
     return out
 
 
@@ -123,14 +131,16 @@ def g1_addsub_plain(a: torch.Tensor, b: torch.Tensor, negate_b: bool) -> torch.T
 
 
 def _addsub_rows(a: torch.Tensor, b: torch.Tensor, negate_b: bool) -> torch.Tensor:
-    if not _route("g1_addsub", a, b):
-        return g1_addsub_plain(a, b, negate_b)
     n = a.shape[0]
-    check_cuda_tensor("g1_addsub a", a, (n, 3, lb.NWORDS))
-    check_cuda_tensor("g1_addsub b", b, (n, 3, lb.NWORDS))
-    out = torch.empty((n, 3, lb.NWORDS), dtype=torch.int32, device=a.device)
-    with mx.span("stages.run", kernel="g1_addsub", rows=n):
-        G1_ADDSUB.launch(a.device, a.data_ptr(), b.data_ptr(), out.data_ptr(), n, int(negate_b))
+    card = _route("g1_addsub", a, b)
+    with devobs.dispatch("g1_addsub", rows=n, device=a.device):
+        if not card:
+            return g1_addsub_plain(a, b, negate_b)
+        check_cuda_tensor("g1_addsub a", a, (n, 3, lb.NWORDS))
+        check_cuda_tensor("g1_addsub b", b, (n, 3, lb.NWORDS))
+        out = torch.empty((n, 3, lb.NWORDS), dtype=torch.int32, device=a.device)
+        with mx.span("stages.run", kernel="g1_addsub", rows=n):
+            G1_ADDSUB.launch(a.device, a.data_ptr(), b.data_ptr(), out.data_ptr(), n, int(negate_b))
     return out
 
 
@@ -157,13 +167,15 @@ def g1_to_affine_plain(points: torch.Tensor) -> torch.Tensor:
 
 def g1_to_affine_rows(points: torch.Tensor) -> torch.Tensor:
     """(N, 3, 8) Jacobian -> (N, 2, 8) affine; infinity -> (0, 0)."""
-    if not _route("g1_to_affine", points):
-        return g1_to_affine_plain(points)
     n = points.shape[0]
-    check_cuda_tensor("g1_to_affine points", points, (n, 3, lb.NWORDS))
-    out = torch.empty((n, 2, lb.NWORDS), dtype=torch.int32, device=points.device)
-    with mx.span("stages.run", kernel="g1_to_affine", rows=n):
-        G1_TO_AFFINE.launch(points.device, points.data_ptr(), out.data_ptr(), n)
+    card = _route("g1_to_affine", points)
+    with devobs.dispatch("g1_to_affine", rows=n, device=points.device):
+        if not card:
+            return g1_to_affine_plain(points)
+        check_cuda_tensor("g1_to_affine points", points, (n, 3, lb.NWORDS))
+        out = torch.empty((n, 2, lb.NWORDS), dtype=torch.int32, device=points.device)
+        with mx.span("stages.run", kernel="g1_to_affine", rows=n):
+            G1_TO_AFFINE.launch(points.device, points.data_ptr(), out.data_ptr(), n)
     return out
 
 
@@ -179,14 +191,16 @@ def g2_mul_plain(points: torch.Tensor, scalars: torch.Tensor) -> torch.Tensor:
 
 def g2_mul_rows(points: torch.Tensor, scalars: torch.Tensor) -> torch.Tensor:
     """[k]Q on G2: (N, 3, 2, 8) x (N, 8) canonical -> (N, 3, 2, 8)."""
-    if not _route("g2_mul", points, scalars):
-        return g2_mul_plain(points, scalars)
     n = scalars.shape[0]
-    check_cuda_tensor("g2_mul points", points, (n,) + _G2_SHAPE)
-    check_cuda_tensor("g2_mul scalars", scalars, (n, lb.NWORDS))
-    out = torch.empty((n,) + _G2_SHAPE, dtype=torch.int32, device=points.device)
-    with mx.span("stages.run", kernel="g2_mul", rows=n):
-        G2_MUL.launch(points.device, points.data_ptr(), scalars.data_ptr(), out.data_ptr(), n)
+    card = _route("g2_mul", points, scalars)
+    with devobs.dispatch("g2_mul", rows=n, device=points.device):
+        if not card:
+            return g2_mul_plain(points, scalars)
+        check_cuda_tensor("g2_mul points", points, (n,) + _G2_SHAPE)
+        check_cuda_tensor("g2_mul scalars", scalars, (n, lb.NWORDS))
+        out = torch.empty((n,) + _G2_SHAPE, dtype=torch.int32, device=points.device)
+        with mx.span("stages.run", kernel="g2_mul", rows=n):
+            G2_MUL.launch(points.device, points.data_ptr(), scalars.data_ptr(), out.data_ptr(), n)
     return out
 
 
@@ -197,14 +211,16 @@ def g2_add_plain(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
 
 def g2_add_rows(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     """a + b on (N, 3, 2, 8) G2 Jacobian rows."""
-    if not _route("g2_add", a, b):
-        return g2_add_plain(a, b)
     n = a.shape[0]
-    check_cuda_tensor("g2_add a", a, (n,) + _G2_SHAPE)
-    check_cuda_tensor("g2_add b", b, (n,) + _G2_SHAPE)
-    out = torch.empty((n,) + _G2_SHAPE, dtype=torch.int32, device=a.device)
-    with mx.span("stages.run", kernel="g2_add", rows=n):
-        G2_ADD.launch(a.device, a.data_ptr(), b.data_ptr(), out.data_ptr(), n)
+    card = _route("g2_add", a, b)
+    with devobs.dispatch("g2_add", rows=n, device=a.device):
+        if not card:
+            return g2_add_plain(a, b)
+        check_cuda_tensor("g2_add a", a, (n,) + _G2_SHAPE)
+        check_cuda_tensor("g2_add b", b, (n,) + _G2_SHAPE)
+        out = torch.empty((n,) + _G2_SHAPE, dtype=torch.int32, device=a.device)
+        with mx.span("stages.run", kernel="g2_add", rows=n):
+            G2_ADD.launch(a.device, a.data_ptr(), b.data_ptr(), out.data_ptr(), n)
     return out
 
 
@@ -216,13 +232,15 @@ def g2_to_affine_plain(points: torch.Tensor) -> torch.Tensor:
 
 def g2_to_affine_rows(points: torch.Tensor) -> torch.Tensor:
     """(N, 3, 2, 8) Jacobian -> (N, 2, 2, 8) affine; infinity -> (0, 0)."""
-    if not _route("g2_to_affine", points):
-        return g2_to_affine_plain(points)
     n = points.shape[0]
-    check_cuda_tensor("g2_to_affine points", points, (n,) + _G2_SHAPE)
-    out = torch.empty((n, 2, 2, lb.NWORDS), dtype=torch.int32, device=points.device)
-    with mx.span("stages.run", kernel="g2_to_affine", rows=n):
-        G2_TO_AFFINE.launch(points.device, points.data_ptr(), out.data_ptr(), n)
+    card = _route("g2_to_affine", points)
+    with devobs.dispatch("g2_to_affine", rows=n, device=points.device):
+        if not card:
+            return g2_to_affine_plain(points)
+        check_cuda_tensor("g2_to_affine points", points, (n,) + _G2_SHAPE)
+        out = torch.empty((n, 2, 2, lb.NWORDS), dtype=torch.int32, device=points.device)
+        with mx.span("stages.run", kernel="g2_to_affine", rows=n):
+            G2_TO_AFFINE.launch(points.device, points.data_ptr(), out.data_ptr(), n)
     return out
 
 
@@ -257,14 +275,16 @@ def miller_plain(P: torch.Tensor, Q: torch.Tensor) -> torch.Tensor:
 def miller_rows(P: torch.Tensor, Q: torch.Tensor) -> torch.Tensor:
     """Miller loop a leg: G1 affine (N, 2, 8), G2 affine (N, 2, 2, 8)
     -> (N, 6, 2, 8). No infinity handling: (0, 0) legs run as given."""
-    if not _route("miller", P, Q):
-        return miller_plain(P, Q)
     n = P.shape[0]
-    check_cuda_tensor("miller P", P, (n, 2, lb.NWORDS))
-    check_cuda_tensor("miller Q", Q, (n, 2, 2, lb.NWORDS))
-    out = torch.empty((n,) + _FP12_SHAPE, dtype=torch.int32, device=P.device)
-    with mx.span("stages.run", kernel="miller", rows=n):
-        MILLER.launch(P.device, P.data_ptr(), Q.data_ptr(), out.data_ptr(), n)
+    card = _route("miller", P, Q)
+    with devobs.dispatch("miller", rows=n, device=P.device):
+        if not card:
+            return miller_plain(P, Q)
+        check_cuda_tensor("miller P", P, (n, 2, lb.NWORDS))
+        check_cuda_tensor("miller Q", Q, (n, 2, 2, lb.NWORDS))
+        out = torch.empty((n,) + _FP12_SHAPE, dtype=torch.int32, device=P.device)
+        with mx.span("stages.run", kernel="miller", rows=n):
+            MILLER.launch(P.device, P.data_ptr(), Q.data_ptr(), out.data_ptr(), n)
     return out
 
 
@@ -275,13 +295,15 @@ def gt_product_plain(f: torch.Tensor) -> torch.Tensor:
 
 def gt_product_rows(f: torch.Tensor) -> torch.Tensor:
     """Per-row product of K Fp12 values: (N, K, 6, 2, 8) -> (N, 6, 2, 8)."""
-    if not _route("gt_product", f):
-        return gt_product_plain(f)
     n, k = f.shape[0], f.shape[1]
-    check_cuda_tensor("gt_product f", f, (n, k) + _FP12_SHAPE)
-    out = torch.empty((n,) + _FP12_SHAPE, dtype=torch.int32, device=f.device)
-    with mx.span("stages.run", kernel="gt_product", rows=n):
-        GT_PRODUCT.launch(f.device, f.data_ptr(), out.data_ptr(), n, k)
+    card = _route("gt_product", f)
+    with devobs.dispatch("gt_product", rows=n, device=f.device):
+        if not card:
+            return gt_product_plain(f)
+        check_cuda_tensor("gt_product f", f, (n, k) + _FP12_SHAPE)
+        out = torch.empty((n,) + _FP12_SHAPE, dtype=torch.int32, device=f.device)
+        with mx.span("stages.run", kernel="gt_product", rows=n):
+            GT_PRODUCT.launch(f.device, f.data_ptr(), out.data_ptr(), n, k)
     return out
 
 
@@ -292,13 +314,15 @@ def final_exp_plain(f: torch.Tensor) -> torch.Tensor:
 
 def final_exp_rows(f: torch.Tensor) -> torch.Tensor:
     """f^((p^12-1)/r) a row: (N, 6, 2, 8) -> (N, 6, 2, 8) GT."""
-    if not _route("final_exp", f):
-        return final_exp_plain(f)
     n = f.shape[0]
-    check_cuda_tensor("final_exp f", f, (n,) + _FP12_SHAPE)
-    out = torch.empty((n,) + _FP12_SHAPE, dtype=torch.int32, device=f.device)
-    with mx.span("stages.run", kernel="final_exp", rows=n):
-        FINAL_EXP.launch(f.device, f.data_ptr(), out.data_ptr(), n)
+    card = _route("final_exp", f)
+    with devobs.dispatch("final_exp", rows=n, device=f.device):
+        if not card:
+            return final_exp_plain(f)
+        check_cuda_tensor("final_exp f", f, (n,) + _FP12_SHAPE)
+        out = torch.empty((n,) + _FP12_SHAPE, dtype=torch.int32, device=f.device)
+        with mx.span("stages.run", kernel="final_exp", rows=n):
+            FINAL_EXP.launch(f.device, f.data_ptr(), out.data_ptr(), n)
     return out
 
 
@@ -337,27 +361,31 @@ def pairing_product_rows(P: torch.Tensor, Q: torch.Tensor, inf_mask=None) -> tor
     if inf_mask is not None:
         mask = torch.as_tensor(np.asarray(inf_mask, dtype=bool)).to(P.device, torch.uint8)
         mask = mask.reshape(n, k).contiguous()
-    if not _route("pairing_product", P, Q, *(() if mask is None else (mask,))):
-        return pairing_product_plain(P, Q, None if mask is None else mask.bool())
-    check_cuda_tensor("pairing_product P", P, (n, k, 2, lb.NWORDS))
-    check_cuda_tensor("pairing_product Q", Q, (n, k, 2, 2, lb.NWORDS))
-    out = torch.empty((n,) + _FP12_SHAPE, dtype=torch.int32, device=P.device)
-    with mx.span("stages.run", kernel="pairing_product", rows=n):
-        PAIRING_PRODUCT.launch(P.device, P.data_ptr(), Q.data_ptr(),
-                               None if mask is None else mask.data_ptr(), out.data_ptr(), n, k)
+    card = _route("pairing_product", P, Q, *(() if mask is None else (mask,)))
+    with devobs.dispatch("pairing_product", rows=n, device=P.device):
+        if not card:
+            return pairing_product_plain(P, Q, None if mask is None else mask.bool())
+        check_cuda_tensor("pairing_product P", P, (n, k, 2, lb.NWORDS))
+        check_cuda_tensor("pairing_product Q", Q, (n, k, 2, 2, lb.NWORDS))
+        out = torch.empty((n,) + _FP12_SHAPE, dtype=torch.int32, device=P.device)
+        with mx.span("stages.run", kernel="pairing_product", rows=n):
+            PAIRING_PRODUCT.launch(P.device, P.data_ptr(), Q.data_ptr(),
+                                   None if mask is None else mask.data_ptr(), out.data_ptr(), n, k)
     return out
 
 
 def gt_product_final_exp_rows(f: torch.Tensor) -> torch.Tensor:
     """The product of K Miller values and one final exponentiation a row,
     in one launch: (N, K, 6, 2, 8) -> (N, 6, 2, 8) canonical GT."""
-    if not _route("gt_product_final_exp", f):
-        return gt_product_final_exp_plain(f)
     n, k = f.shape[0], f.shape[1]
-    check_cuda_tensor("gt_product_final_exp f", f, (n, k) + _FP12_SHAPE)
-    out = torch.empty((n,) + _FP12_SHAPE, dtype=torch.int32, device=f.device)
-    with mx.span("stages.run", kernel="gt_product_final_exp", rows=n):
-        GT_PRODUCT_FINAL_EXP.launch(f.device, f.data_ptr(), out.data_ptr(), n, k)
+    card = _route("gt_product_final_exp", f)
+    with devobs.dispatch("gt_product_final_exp", rows=n, device=f.device):
+        if not card:
+            return gt_product_final_exp_plain(f)
+        check_cuda_tensor("gt_product_final_exp f", f, (n, k) + _FP12_SHAPE)
+        out = torch.empty((n,) + _FP12_SHAPE, dtype=torch.int32, device=f.device)
+        with mx.span("stages.run", kernel="gt_product_final_exp", rows=n):
+            GT_PRODUCT_FINAL_EXP.launch(f.device, f.data_ptr(), out.data_ptr(), n, k)
     return out
 
 

@@ -27,7 +27,9 @@ after another on that device. No mesh (None) is one launch a stage over
 all rows on the tensors' device. A `MeshConfig` is a mesh's shape only:
 it names no device, and the entry points refuse it.
 
-A non-dividing `mp` is clamped (`sharding.clamped`) and padding counted
+Each mesh call is one dispatch of the ledger (`utils/devobs.py`), timed
+on the card by its devices' events, beside the dispatches of the kernels
+it launches. A non-dividing `mp` is clamped (`sharding.clamped`) and padding counted
 (`sharding.padded_rows`), as in the reference; a K that mp does not
 divide takes the staged path (`sharding.fallbacks`), a planning
 decision. A device error propagates: there is no unsharded re-run.
@@ -132,6 +134,12 @@ def _device_mesh(mesh) -> DeviceMesh:
     return mesh
 
 
+def _mesh_devices(mesh: DeviceMesh) -> list:
+    """Every device of the mesh: a mesh dispatch's time is the longest of
+    their timing-event pairs (`utils/devobs.py`)."""
+    return [d for row in mesh.devices for d in row]
+
+
 def _pad(a: torch.Tensor, pad: int) -> torch.Tensor:
     return torch.cat([a, a[:1].expand((pad,) + tuple(a.shape[1:]))]) if pad else a
 
@@ -169,7 +177,7 @@ def run_rows_dp(rows_fn, *arrays, mesh: Optional[DeviceMesh] = None, consts=()) 
     mesh = _device_mesh(mesh)
     B, dp = arrays[0].shape[0], mesh.shape["dp"]
     with devobs.dispatch(rows_fn.__name__, rows=B, padded_rows=(-B) % dp, dp=dp,
-                         mp=mesh.shape["mp"]):
+                         mp=mesh.shape["mp"], device=_mesh_devices(mesh)):
         return _on_row_groups(
             lambda group, *spans: rows_fn(*(x.to(group[0]) for x in (*consts, *spans))),
             arrays, mesh)
@@ -237,5 +245,6 @@ def sharded_pairing_product(Ps: torch.Tensor, Qs: torch.Tensor, mesh: Optional[D
         fused = False
     if not fused:
         return run_rows_dp(pr.pairing_product_staged, Ps, Qs, mesh=mesh)
-    with devobs.dispatch("fused_pairing", rows=B * K, padded_rows=((-B) % dp) * K, dp=dp, mp=mp):
+    with devobs.dispatch("fused_pairing", rows=B * K, padded_rows=((-B) % dp) * K, dp=dp, mp=mp,
+                         device=_mesh_devices(mesh)):
         return _on_row_groups(_fused_row_group, (Ps, Qs), mesh)

@@ -250,8 +250,9 @@ class Network:
             # live error-budget state (utils/slo.py): per-SLO burn over
             # the sliding window
             "slo": slo.ENGINE.health_section(),
-            # the batched planes' device, and the mesh dispatch ledger
-            # (utils/devobs.py)
+            # the dispatch ledger of every kernel launch, with times on
+            # the card by CUDA events (utils/devobs.py), and the batched
+            # planes' device
             "device": dict(devobs.health_section(), name=str(self.device)),
             # host-path parse caches (identity / parsed-request / raw
             # bytes): lifetime hit/miss counters — a cold or thrashing

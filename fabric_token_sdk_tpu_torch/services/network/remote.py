@@ -411,6 +411,9 @@ class LedgerServer:
         if op == "ops.metrics":
             from ...ops._build import ALL_KERNELS
 
+            from ...utils import devobs
+
+            devobs.resolve()  # the finished dispatches' device times, into their histograms
             snap = mx.REGISTRY.snapshot()
             # each kernel's launch count (`Kernel.launches`), as counters
             snap["counters"].update({f"kernel.launches.{k.name}": k.launches

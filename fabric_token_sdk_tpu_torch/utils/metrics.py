@@ -1,15 +1,14 @@
-"""Metrics core: counters, gauges, histograms and span trees in one
-registry, and the flight recorder.
+"""Metrics core: counters, gauges, histograms, span trees and the phase
+timeline in one registry, the flight recorder, and the export plane.
 
-The part of the JAX package's `utils/metrics.py` that the port calls:
-the batched verifiers, the host prover and verifier, the parse caches,
-the native self-checks, the dispatch ledger (`utils/devobs.py`), the
-mesh plane (`parallel/sharding.py`), the host-path profiler
-(`utils/profiler.py`), the SLO engine (`utils/slo.py`) and the block
-validation path (`services/network/`), the remote node and its
-replication plane keep their instruments under the same names.
-Heartbeats and the Prometheus export come over when a port module
-needs them.
+Counterpart of the JAX package's `utils/metrics.py`: the batched
+verifiers, the host prover and verifier, the parse caches, the native
+self-checks, the dispatch ledger (`utils/devobs.py`), the mesh plane
+(`parallel/sharding.py`), the host-path profiler (`utils/profiler.py`),
+the SLO engine (`utils/slo.py`), the block validation path, the remote
+node and its replication plane (`services/network/`) keep their
+instruments under the same names, and the operator tools
+(`cmd/ftsmetrics.py`, `ftstop.py`, `ftstrace.py`) read them.
 
 * One process-wide thread-safe ``Registry`` (``REGISTRY``) holding named
   counters, gauges and histograms, completed span trees and free-form
@@ -30,7 +29,10 @@ needs them.
   sidecar format, and the body of the node's ``ops.metrics`` RPC, with
   p50/p95/p99 a histogram); ``flush_sidecar`` writes it and the flight
   ring's ``*.flight.json``, ``install_sidecar`` does so at exit and on
-  SIGTERM/SIGINT.
+  SIGTERM/SIGINT; ``to_prometheus()`` is the text exposition format
+  (counters, gauges, histograms with their quantile series).
+* ``Heartbeat`` prints phase-stamped progress lines from a daemon thread
+  and records the phase timeline (the snapshot's ``phases``).
 * ``logger`` is the port's logger (the reference's `utils/tracing.logger`).
 """
 
@@ -43,6 +45,7 @@ import json
 import logging
 import os
 import signal
+import sys
 import threading
 import time
 from dataclasses import dataclass, field
@@ -431,6 +434,7 @@ class Registry:
         self._gauges: Dict[str, Gauge] = {}
         self._histograms: Dict[str, Histogram] = {}
         self._span_roots: List[Span] = []
+        self._phases: List[dict] = []
         self._meta: Dict[str, object] = {}
 
     def counter(self, name: str) -> Counter:
@@ -460,6 +464,21 @@ class Registry:
             self._span_roots.append(s)
             if len(self._span_roots) > self.MAX_SPAN_ROOTS:
                 del self._span_roots[: self.MAX_SPAN_ROOTS // 2]
+
+    MAX_PHASES = 500
+
+    def record_phase(self, name: str, start: float, end: Optional[float], **attrs) -> None:
+        """One row of the phase timeline: `name`, its wall-clock start and,
+        once it ended, its elapsed seconds (what `Heartbeat` records)."""
+        row = {"name": name, "start_unix": round(start, 3)}
+        if end is not None:
+            row["elapsed_s"] = round(end - start, 3)
+        if attrs:
+            row["attrs"] = {k: _jsonable(v) for k, v in attrs.items()}
+        with self._lock:
+            self._phases.append(row)
+            if len(self._phases) > self.MAX_PHASES:
+                del self._phases[: self.MAX_PHASES // 2]
 
     def set_meta(self, key: str, value) -> None:
         with self._lock:
@@ -495,8 +514,7 @@ class Registry:
 
     def snapshot(self) -> dict:
         """Everything the registry holds, JSON-ready: the sidecar format
-        and the body of the `ops.metrics` RPC. `phases` stays empty: the
-        port records none (no `Heartbeat`)."""
+        and the body of the `ops.metrics` RPC."""
         # timed acquire: flush_sidecar() runs from signal handlers, which
         # can interrupt a thread that already holds this (non-reentrant)
         # lock; fall back to a best-effort unlocked read over deadlock
@@ -507,6 +525,7 @@ class Registry:
             hists = dict(sorted(self._histograms.items()))
             meta = {k: _jsonable(v) for k, v in self._meta.items()}
             roots = list(self._span_roots)
+            phases = list(self._phases)
         finally:
             if acquired:
                 self._lock.release()
@@ -514,7 +533,7 @@ class Registry:
             "meta": meta,
             "pid": os.getpid(),
             "flushed_unix": round(time.time(), 3),
-            "phases": [],
+            "phases": phases,
             "counters": counters,
             "gauges": gauges,
             "histograms": {n: h.snapshot() for n, h in hists.items()},
@@ -525,13 +544,63 @@ class Registry:
     def to_json(self, indent: Optional[int] = 2) -> str:
         return json.dumps(self.snapshot(), indent=indent, sort_keys=False)
 
+    def to_prometheus(self) -> str:
+        """Text exposition format: counters, gauges and histograms (with
+        their p50/p95/p99 as companion series), names sanitized to
+        `fts_[a-z0-9_]`."""
+        lines: List[str] = []
+        with self._lock:
+            counters = sorted(self._counters.items())
+            gauges = sorted(self._gauges.items())
+            hists = sorted(self._histograms.items())
+        for name, c in counters:
+            m = _prom_name(name)
+            lines.append(f"# TYPE {m} counter")
+            lines.append(f"{m} {c.value}")
+        for name, g in gauges:
+            m = _prom_name(name)
+            lines.append(f"# TYPE {m} gauge")
+            lines.append(f"{m} {_prom_num(g.value)}")
+        for name, h in hists:
+            m = _prom_name(name)
+            lines.append(f"# TYPE {m} histogram")
+            cum = 0
+            with h._lock:
+                counts = list(h._counts)
+                total, s = h._count, h._sum
+                lo, hi = h._min, h._max
+            for b, n in zip(h.buckets, counts):
+                cum += n
+                lines.append(f'{m}_bucket{{le="{_prom_num(b)}"}} {cum}')
+            cum += counts[-1]
+            lines.append(f'{m}_bucket{{le="+Inf"}} {cum}')
+            lines.append(f"{m}_sum {_prom_num(s)}")
+            lines.append(f"{m}_count {total}")
+            if total:
+                for label, q in QUANTILES:
+                    v = Histogram._interp(q, h.buckets, counts, total, lo, hi)
+                    lines.append(f"{m}_{label} {_prom_num(round(v, 9))}")
+        return "\n".join(lines) + "\n"
+
     def reset(self) -> None:
         with self._lock:
             self._counters.clear()
             self._gauges.clear()
             self._histograms.clear()
             self._span_roots.clear()
+            self._phases.clear()
             self._meta.clear()
+
+
+def _prom_name(name: str) -> str:
+    out = "".join(c if c.isalnum() else "_" for c in name.lower())
+    if out and out[0].isdigit():
+        out = "_" + out
+    return "fts_" + out
+
+
+def _prom_num(v: float) -> str:
+    return ("%d" % v) if float(v).is_integer() else repr(float(v))
 
 
 REGISTRY = Registry()
@@ -560,6 +629,85 @@ def timed(hist_name: str):
         yield
     finally:
         REGISTRY.histogram(hist_name).observe(time.monotonic() - t0)
+
+
+# ------------------------------------------------------------ heartbeat
+
+
+class Heartbeat:
+    """Phase-stamped progress lines on a stream (stderr by default) from a
+    daemon thread, ``[fts] phase=warmup elapsed=14s total=20s``, every
+    `interval_s` seconds (the reference's `FTS_HEARTBEAT_SECS` default).
+
+    Each completed phase is recorded in the registry's phase timeline
+    (stamped with the process's RSS, and the card's allocated bytes where
+    CUDA is initialized, as it ended), so a sidecar flushed at death says
+    where the time went; every phase change is a flight event. Lines and
+    phase rows are gated like spans (`enable`)."""
+
+    def __init__(self, tag: str = "fts", interval_s: float = 15.0, stream=None):
+        self.tag = tag
+        self.interval_s = interval_s
+        self.stream = stream if stream is not None else sys.stderr
+        self._t0 = time.time()
+        self._phase = "init"
+        self._phase_start = self._t0
+        self._attrs: dict = {}
+        self._lock = threading.Lock()
+        self._stop = threading.Event()
+        self._thread: Optional[threading.Thread] = None
+
+    def set_phase(self, name: str, **attrs) -> None:
+        now = time.time()
+        with self._lock:
+            prev, prev_start, prev_attrs = self._phase, self._phase_start, self._attrs
+            self._phase, self._phase_start, self._attrs = name, now, attrs
+        FLIGHT.record("phase", phase=name, **attrs)
+        if _enabled:
+            done_attrs = dict(prev_attrs)
+            try:
+                from . import sysmon
+
+                mem = sysmon.sample()
+                done_attrs.setdefault("rss_mb", round(mem["rss_bytes"] / 1e6, 1))
+                if mem.get("device_bytes") is not None:
+                    done_attrs.setdefault("dev_mem_mb", round(mem["device_bytes"] / 1e6, 1))
+            except Exception:
+                pass  # telemetry must never break a phase change
+            REGISTRY.record_phase(prev, prev_start, now, **done_attrs)
+            REGISTRY.gauge("progress.phase_start_unix").set(now)
+            REGISTRY.set_meta("progress.phase", name)
+        self.emit()
+
+    def emit(self) -> None:
+        if not _enabled:
+            return
+        with self._lock:
+            phase, phase_start, attrs = self._phase, self._phase_start, self._attrs
+        now = time.time()
+        extra = "".join(f" {k}={_jsonable(v)}" for k, v in attrs.items())
+        try:
+            print(f"[{self.tag}] phase={phase}{extra} elapsed={now - phase_start:.0f}s "
+                  f"total={now - self._t0:.0f}s", file=self.stream, flush=True)
+        except Exception:
+            pass  # the stream may be gone at interpreter teardown
+
+    def start(self) -> "Heartbeat":
+        if self._thread is None:
+            self._thread = threading.Thread(target=self._run, name="fts-heartbeat", daemon=True)
+            self._thread.start()
+        return self
+
+    def _run(self) -> None:
+        while not self._stop.wait(self.interval_s):
+            self.emit()
+
+    def stop(self) -> None:
+        self._stop.set()
+        with self._lock:
+            phase, phase_start, attrs = self._phase, self._phase_start, self._attrs
+        if _enabled:
+            REGISTRY.record_phase(phase, phase_start, time.time(), **attrs)
 
 
 # ------------------------------------------------------------ flight recorder

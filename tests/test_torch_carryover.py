@@ -155,7 +155,9 @@ for need in ("parallel.sharding", "crypto.sign", "crypto.batch_sign", "utils.dev
              "services.query", "services.query.query", "services.certifier",
              "services.certifier.certifier", "services.nfttx", "services.nfttx.nft",
              "services.network.remote", "services.network.replication", "utils.sysmon",
-             "ops.warmup", "cmd.ftswarmup", "crypto.o2omp", "crypto.credential"):
+             "ops.warmup", "cmd.ftswarmup", "crypto.o2omp", "crypto.credential",
+             "utils.benchschema", "cmd.ftsmetrics", "cmd.ftstop", "cmd.ftstrace",
+             "cmd.tokengen"):
     assert port.__name__ + "." + need in names, need
 # memory sampling reads the card only where CUDA is already in use
 from fabric_token_sdk_tpu_torch.utils import sysmon
@@ -167,6 +169,46 @@ assert not torch.cuda.is_initialized()
     res = subprocess.run([sys.executable, "-c", code], cwd=ROOT, env=env,
                          capture_output=True, text=True, timeout=300)
     assert res.returncode == 0, res.stdout + res.stderr
+
+
+def test_operator_tools_never_initialize_cuda():
+    """The operator tools import and run without initializing CUDA in
+    their own process: with `torch.cuda._lazy_init` made to fail, the
+    five new modules import, and `ftstop devices HOST:PORT --once` (run
+    as `python -m`, the way an operator runs it) and `top --once` answer
+    from a port node on the CPU, which serves them from this process."""
+    from fabric_token_sdk_tpu_torch.api.validator import RequestValidator
+    from fabric_token_sdk_tpu_torch.drivers.fabtoken import FabTokenDriver, FabTokenPublicParams
+    from fabric_token_sdk_tpu_torch.services.network import LedgerServer, Network
+
+    net = Network(RequestValidator(FabTokenDriver(FabTokenPublicParams())), device="cpu")
+    server = LedgerServer(network=net).start()
+    host, port = server.address
+    code = r"""
+import runpy, sys, torch
+def boom(*a, **k):
+    raise AssertionError("CUDA initialized")
+torch.cuda._lazy_init = boom
+addr = sys.argv[1]
+sys.argv = ["ftstop", "devices", addr, "--once"]
+try:
+    runpy.run_module("fabric_token_sdk_tpu_torch.cmd.ftstop", run_name="__main__")
+except SystemExit as e:
+    assert e.code == 0, e.code
+from fabric_token_sdk_tpu_torch.cmd import ftsmetrics, ftstop, ftstrace, tokengen
+from fabric_token_sdk_tpu_torch.utils import benchschema
+assert ftstop.main(["top", addr, "--once"]) == 0
+assert not torch.cuda.is_initialized()
+print("ok")
+"""
+    try:
+        env = dict(os.environ, PYTHONPATH=os.path.abspath(ROOT))
+        res = subprocess.run([sys.executable, "-c", code, f"{host}:{port}"], cwd=ROOT, env=env,
+                             capture_output=True, text=True, timeout=300)
+    finally:
+        server.stop()
+    assert res.returncode == 0 and res.stdout.strip().endswith("ok"), res.stdout + res.stderr
+    assert res.stdout.startswith("planes: ") and "height=0" in res.stdout
 
 
 def test_chip_smoke_imports_no_jax():

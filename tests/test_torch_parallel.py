@@ -227,7 +227,7 @@ def test_dispatch_is_recorded_on_the_ledger(stage_cases):
     fn, arrays, consts, _ = stage_cases["g1_add"]
     devobs.reset()
     run_rows_dp(fn, *arrays, mesh=_mesh(3))
-    e = devobs.snapshot()["g1_add_rows"]
+    e = devobs.snapshot()[("stages", "g1_add_rows")]
     assert (e["dispatches"], e["rows"], e["padded_rows"], e["dp"], e["mp"]) == (1, N_ROWS, 1, 3, 1)
     assert e["degrades"] == {}
 
@@ -238,7 +238,8 @@ def test_dispatch_error_propagates_no_sequential_fallback(stage_cases, monkeypat
     """A deliberate divergence from the reference, whose span dispatch
     re-runs the call unsharded after any error (`sharding.fallbacks`):
     here a failing row group (the third launch) reaches the caller, and
-    the ledger records no dispatch."""
+    the ledger records no mesh dispatch, only the two kernel dispatches
+    that returned."""
     fn, arrays, consts, _ = stage_cases["g1_add"]
     before = _counter("sharding.fallbacks")
     calls = []
@@ -256,7 +257,9 @@ def test_dispatch_error_propagates_no_sequential_fallback(stage_cases, monkeypat
         run_rows_dp(fn, *arrays, mesh=_mesh(4))
     assert calls == [3, 3, 3]
     assert _counter("sharding.fallbacks") == before
-    assert devobs.snapshot() == {}
+    snap = devobs.snapshot()
+    assert set(snap) == {("stages", "g1_addsub")}
+    assert snap[("stages", "g1_addsub")]["dispatches"] == 2
 
 
 # ------------------------------------------------------------------ Schnorr rows

@@ -66,7 +66,7 @@ def test_fused_pairing_product_matches_hostmath(K, stage_calls):
     assert gt.shape == (5, 6, 2, lb.NWORDS)
     assert tw.decode_fp12(gt) == host_gt(rows_P, rows_Q)
     assert pr.gt_is_one_host(gt.numpy()).tolist() == ones(5)
-    e = devobs.snapshot()["fused_pairing"]
+    e = devobs.snapshot()[("stages", "fused_pairing")]
     assert (e["rows"], e["padded_rows"], e["dp"], e["mp"]) == (5 * K, 3 * K, 4, 2)
 
 

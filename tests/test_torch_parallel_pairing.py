@@ -73,7 +73,7 @@ def test_k_not_divisible_by_mp_degrades_to_staged(monkeypatch):
     assert _counter("sharding.fallbacks") - before == 1
     assert seen == [(2, 3)] * 4 and fused == []  # 5 rows padded to 8, 4 groups
     assert mx.FLIGHT.tail(1)[0]["reason"] == "k_not_divisible"
-    assert devobs.snapshot()["fused_pairing"]["degrades"] == {"k_not_divisible": 1}
+    assert devobs.snapshot()[("stages", "fused_pairing")]["degrades"] == {"k_not_divisible": 1}
     P2, Q2 = P3[:, :2].contiguous(), Q3[:, :2].contiguous()
     sharded_pairing_product(P2, Q2, None, fused=True)  # no mesh: one staged call
     assert seen[-1] == (5, 2) and fused == []
