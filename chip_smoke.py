@@ -32,7 +32,8 @@ through `g1_addsub` as an add, the GT pre-commitments through the K = 2
 product. The proofs must be accepted by the host and batched verifiers,
 planted tampering rejected, a small group's bytes equal the plain
 versions' on the CPU for one seed, and each launch count equal the
-plan; the select multiexp, the add and the K = 2 product are held
+plan (the host verifier checks the first 8 2-in/2-out proofs of the
+64-tx group and every 1-in/1-out one); the select multiexp, the add and the K = 2 product are held
 against their plain versions on the prover's own inputs, and the select
 kernel is timed on zero and on random scalars beside the gather. Last,
 64 Pointcheval-Sanders signatures (the range parameters' signed set,
@@ -48,7 +49,7 @@ its plain version and the staged launch sequence on edge rows (K = 1,
 the PS verify's legs, and timed beside the staged sequence; the PS
 checks through `sharded_pairing_product(fused=True)` on both meshes
 (planted rows rejected, the launches as planned) and through
-`multichip_torch.py --logical`; `sharded_schnorr_rows` on the mesh bit
+`multichip_torch.py --logical --fused`; `sharded_schnorr_rows` on the mesh bit
 for bit against no mesh; and `BatchedSchnorrVerifier` on 64 and 1,024
 signatures with planted faults against the host `PublicKey.verify`,
 with and without the mesh.
@@ -84,9 +85,10 @@ differ from the ledger's, one input spent in two records, an
 unplannable proof); the orderer's validation: `transfer_batch_plan` on
 every record, one `driver.batch_verifier().verify`, and
 `validate(..., transfer_proofs=...)`, held against `validate` on the
-host. A 1,024-tx backlog mints its inputs directly and runs the same
-path, its verdicts held against `BatchedTransferVerifier` called
-directly. Each `transfer_many` must launch the prove's kernels and each
+host for the planted requests and 8 others. A 1,024-tx backlog mints its
+inputs directly and runs the same path, its verdicts held against
+`BatchedTransferVerifier` called directly (and host validation on the
+planted requests and 8 others). Each `transfer_many` must launch the prove's kernels and each
 verify the 2-in/2-out verify's ten, at the counts the prove and range
 phases plan; validation launches none. It prints the times and the
 host profiler's leg totals.
@@ -102,13 +104,26 @@ transfer in place of a valid one, so that MVCC rejects the later of the
 two (statuses equal validation with the batched verdicts, the spend of
 the forged issue's outputs rejected, exactly the 2-in/2-out verify's
 launches); the backlog from a restored snapshot of
-its minted inputs, through the pipelined engine and again with
-`FTS_BLOCK_PIPELINE=0` (equal statuses, one verify a block); then
+its minted inputs, through the pipelined engine, and its first 4 blocks
+again with `FTS_BLOCK_PIPELINE=0` (equal statuses, one verify a block); then
 `Network.recover` from the WAL (the same height, statuses and state).
 Any host re-verification of a proof or signature, a failed plane, a
 breaker not closed or a launch count off plan fails it. It prints each step's time, the
 transfer block's cut-to-finality latency and breakdown, and the
 backlog's tx/s pipelined and sequential.
+
+Last, the mesh binding on logical meshes of the card, (2, 1) and (2, 2)
+(`[mesh-block]`): `[ledger]`'s transfer block through `Network(...,
+mesh=mesh)` restored from the snapshot before it (statuses, state and
+spent set equal the unbound run's; every kernel launched dp times); the
+1,024-tx 2-in/2-out batch through `BatchedTransferVerifier` unbound and
+bound to (2, 2) (equal verdicts) and the 1,024-request
+`TransferProver.batch` with the prover unbound and bound (equal bytes for
+one seed), each side's launches, time and kernel time by CUDA events;
+both modes of the fused product through a bound verifier's `fused=True`
+on the 64-tx block; `multichip_torch.py --logical --devices 4 --mp 2
+--result` (stages 0-3, `ok: true`). A `[cuts]` line gives the phase's
+seconds and what the depth cut from `[drivers]` and `[ledger]` saved.
 
 Last, the token transaction services (`[ttx]`): the quickstart's path
 through `services.ttx` on one `Network(RequestValidator(ZKATDLogDriver(
@@ -287,6 +302,15 @@ TTX_GROUPS, TTX_GROUP = 16, 64  # the [ttx] backlog: groups of one transfer_many
 # the [ttx] backlog's second (sequential) run: its first groups only, a
 # depth cut that keeps the smoke inside its time with [ops] added
 TTX_SEQ_GROUPS = 4
+# [drivers]: the valid requests validated on the host beside the planted
+# ones, in the block and in the backlog (the batched verdicts cover all)
+DRIVERS_HOST_SAMPLE = 8
+# [ledger]: the first blocks of the backlog that the sequential engine
+# commits again (the pipelined engine commits all of them)
+LEDGER_SEQ_BLOCKS = 4
+# [prove]: the 2-in/2-out proofs of the 64-tx group the host verifier checks
+# (the batched verifier checks all of them and the 1,024 of the backlog)
+PROVE_HOST_SAMPLE = 8
 TTX_HOST_PROVE_BUDGET_S = 60.0  # the [ttx] transfer block's host proofs, at most
 # a [ttx] transfer block: the proof plane once, and the auditor's pk
 # signatures (one a request, at least `sign_min_batch`) on the sign plane once
@@ -373,7 +397,8 @@ def bound_ms(products: int, nbytes: int) -> tuple:
 
 
 def drivers_phase(pp, rng, verifier, prove_launches, verify_launches,
-                  block=BLOCK_TXS, backlog=BATCH_TXS, device=None, host_sample=BLOCK_TXS) -> tuple:
+                  block=BLOCK_TXS, backlog=BATCH_TXS, device=None,
+                  host_sample=DRIVERS_HOST_SAMPLE) -> tuple:
     """The token drivers on the card: `ManagementService` and
     `ZKATDLogDriver(pp, device)` (None: the card) at the headline shape,
     2-in/2-out, [100, 55] -> [120, 35].
@@ -387,7 +412,9 @@ def drivers_phase(pp, rng, verifier, prove_launches, verify_launches,
     `transfer_batch_plan` cannot plan); then validation as the orderer
     does it: the plan over every transfer record, one
     `batch_verifier().verify`, and `validate(..., transfer_proofs=...)`,
-    held against `validate` on the host. A `backlog`-tx backlog mints
+    held against `validate` on the host on the planted requests and
+    `host_sample` others (every request's verdict is held against the
+    batched verify's). A `backlog`-tx backlog mints
     its inputs directly and runs `transfer_many`, the plan, one verify
     (held against `verifier`, a `BatchedTransferVerifier` called
     directly on the same rows) and validation with the verdicts; host
@@ -555,6 +582,12 @@ def drivers_phase(pp, rng, verifier, prove_launches, verify_launches,
         ms[f"{tag}_legs"] = {k: v * 1e3 for k, v in sorted(legs.items())}
         return out
 
+    def host_sample_of(n, expect):
+        """The planted requests and `host_sample` others, drawn from rng."""
+        others = [r for r in range(n) if r not in expect]
+        return sorted(expect) + sorted(random.Random(rng.getrandbits(64)).sample(
+            others, min(host_sample, len(others))))
+
     def check_rejections(tag, verdicts, expect, n):
         for r in range(n):
             v = verdicts.get(r)
@@ -599,8 +632,10 @@ def drivers_phase(pp, rng, verifier, prove_launches, verify_launches,
     reqs, expect = plant_and_sign(transfers(specs, "block"))
     plans, got, proofs = plan_and_verify(reqs, "block")
     dev_v = validate_all(reqs, ledger.__getitem__, proofs, "block_validate_verdicts")
-    host_v = validate_all(reqs, ledger.__getitem__, None, "block_validate_host")
-    for r in range(len(reqs)):
+    sample_block = host_sample_of(len(reqs), expect)
+    host_v = validate_all(reqs, ledger.__getitem__, None, "block_validate_host", sample_block)
+    ms["block_host_sample"] = len(sample_block)
+    for r in sample_block:
         a, b = dev_v[r], host_v[r]
         if isinstance(a, str) != isinstance(b, str) or (not isinstance(a, str) and a != b):
             fail(f"[drivers] block request {r}: with verdicts {a!r}, on the host {b!r}")
@@ -652,9 +687,7 @@ def drivers_phase(pp, rng, verifier, prove_launches, verify_launches,
     check_rejections("backlog with verdicts", dev_b, expect_b, len(reqs_b))
     if sum(1 for v in dev_b.values() if isinstance(v, str)) != len(expect_b):
         fail("[drivers] backlog: the rejected requests are not exactly the planted ones")
-    others = [r for r in range(len(reqs_b)) if r not in expect_b]
-    sample = sorted(expect_b) + sorted(random.Random(rng.getrandbits(64)).sample(
-        others, min(host_sample, len(others))))
+    sample = host_sample_of(len(reqs_b), expect_b)
     host_b = validate_all(reqs_b, ledger_b.__getitem__, None, "backlog_validate_host", sample)
     for r in sample:
         a, b = dev_b[r], host_b[r]
@@ -677,7 +710,8 @@ def drivers_line(ms: dict, block: int, backlog: int) -> str:
         f"transfer_many {ms['block_transfer_many']:.1f} ms; plan {ms['block_plan']:.1f} ms; "
         f"batch_verifier() {ms['block_verifier']:.1f} ms (built), .verify "
         f"{ms['block_verify']:.1f} ms; validate with verdicts "
-        f"{ms['block_validate_verdicts']:.1f} ms, without {ms['block_validate_host']:.1f} ms. "
+        f"{ms['block_validate_verdicts']:.1f} ms, without on {ms['block_host_sample']} requests "
+        f"{ms['block_validate_host']:.1f} ms. "
         f"{backlog}-tx backlog: mint {ms['backlog_mint']:.1f} ms, transfer_many "
         f"{ms['backlog_transfer_many']:.1f} ms, sign {ms['backlog_sign']:.1f} ms, plan "
         f"{ms['backlog_plan']:.1f} ms, batch_verifier().verify {ms['backlog_verify']:.1f} ms "
@@ -715,9 +749,9 @@ def ledger_phase(pp, ctx, verify_launches, sign_launches, block=BLOCK_TXS, devic
        `verify_launches`.
     3. The backlog, twice: its minted inputs enter by `Network.restore` of
        a snapshot that holds them; `submit_many` of every request through
-       the pipelined engine, then on a fresh restore with
-       `FTS_BLOCK_PIPELINE=0`; statuses equal in both runs and equal the
-       backlog's verdicts; one verify a block.
+       the pipelined engine, then of its first `LEDGER_SEQ_BLOCKS` blocks
+       on a fresh restore with `FTS_BLOCK_PIPELINE=0`; statuses equal in
+       both runs and equal the backlog's verdicts; one verify a block.
     4. Recovery: `Network.recover` from the WAL gives the same height,
        statuses and state.
     Any host re-verification (`ledger.block.batch_errors`,
@@ -836,14 +870,19 @@ def ledger_phase(pp, ctx, verify_launches, sign_launches, block=BLOCK_TXS, devic
     ctx["tms"].sign_transfers(copy)
     reqs[dup] = copy
     want[dup] = (copy.anchor, "Invalid", f"token {rec.input_ids[0]} already spent")
+    before_transfer = net.snapshot()
+    transfer_raws = [r.to_bytes() for r in reqs]
     with counted("transfer_block", verify_launches):
-        got = timed("transfer_block", lambda: statuses(net.submit_many(
-            [r.to_bytes() for r in reqs])))
+        got = timed("transfer_block", lambda: statuses(net.submit_many(transfer_raws)))
     if got != want:
         bad = [(g, w) for g, w in zip(got, want) if g != w]
         fail(f"[ledger] transfer block: {len(bad)} statuses differ, e.g. {bad[:2]}")
     transfer_block = dict(net.last_block)
     height, snap = net.height(), loads(net.snapshot())
+    # what [mesh-block] replays on bound ledgers: the block's start, its
+    # requests, their statuses and the end state
+    ctx.update(block_start=before_transfer, block_raws=transfer_raws, block_statuses=got,
+               block_end=snap)
 
     # ---------------------------------------------------- 3. the backlog, twice
     n_blocks = -(-len(ctx["reqs_b"]) // block)
@@ -851,8 +890,10 @@ def ledger_phase(pp, ctx, verify_launches, sign_launches, block=BLOCK_TXS, devic
     want_b = expected(ctx["reqs_b"], ctx["verdicts_b"])
     minted = dumps({"state": {i.key(): raw for i, raw in ctx["ledger_b"].items()},
                     "spent": [], "blocks": [], "status": {}})
-    runs = {}
+    runs, nets = {}, {}
     for run, pipelined in (("pipelined", True), ("sequential", False)):
+        blocks = n_blocks if pipelined else min(n_blocks, LEDGER_SEQ_BLOCKS)
+        raws = raws_b[:blocks * block]
         old = os.environ.get("FTS_BLOCK_PIPELINE")
         os.environ["FTS_BLOCK_PIPELINE"] = "1" if pipelined else "0"
         try:
@@ -866,20 +907,22 @@ def ledger_phase(pp, ctx, verify_launches, sign_launches, block=BLOCK_TXS, devic
         if (net_b._engine is not None) != pipelined:
             fail(f"[ledger] backlog {run}: engine {net_b._engine}")
         n_dev = len([e for e in mx.FLIGHT.tail() if e["kind"] == "verify.device"])
-        plan = {k: v * n_blocks for k, v in verify_launches.items()}
+        plan = {k: v * blocks for k, v in verify_launches.items()}
         with counted(f"backlog_{run}", plan):
-            runs[run] = timed(f"backlog_{run}", lambda: statuses(net_b.submit_many(raws_b)))
+            runs[run] = timed(f"backlog_{run}", lambda: statuses(net_b.submit_many(raws)))
         n_dev = len([e for e in mx.FLIGHT.tail() if e["kind"] == "verify.device"]) - n_dev
-        if net_b.height() != n_blocks or n_dev != n_blocks:
+        if net_b.height() != blocks or n_dev != blocks:
             fail(f"[ledger] backlog {run}: {net_b.height()} blocks, {n_dev} batched verifies, "
-                 f"expected {n_blocks} of each")
-        if runs[run] != want_b:
+                 f"expected {blocks} of each")
+        if runs[run] != want_b[:len(raws)]:
             bad = [(g, w) for g, w in zip(runs[run], want_b) if g != w]
             fail(f"[ledger] backlog {run}: {len(bad)} statuses differ, e.g. {bad[:2]}")
-        ms[f"backlog_{run}_txs_per_s"] = len(raws_b) / (ms[f"backlog_{run}"] / 1e3)
+        ms[f"backlog_{run}_txs_per_s"] = len(raws) / (ms[f"backlog_{run}"] / 1e3)
+        ms[f"backlog_{run}_blocks"] = blocks
+        nets[run] = net_b
     # what [repl] replays over the wire: the backlog's start, statuses and end
-    ctx.update(backlog_minted=minted, backlog_statuses=runs["sequential"],
-               backlog_end=loads(net_b.snapshot()))
+    ctx.update(backlog_minted=minted, backlog_statuses=runs["pipelined"],
+               backlog_end=loads(nets["pipelined"].snapshot()))
 
     # ---------------------------------------------------- 4. recovery
     rec_net = timed("recover", lambda: Network.recover(validator, wal_path, policy=policy,
@@ -927,13 +970,227 @@ def ledger_line(ms: dict, block: int, backlog: int) -> str:
         f"breakdown (ms) {bd}; {backlog}-tx backlog in "
         f"{ms['blocks_backlog']} blocks from a restored snapshot: pipelined "
         f"{ms['backlog_pipelined']:.1f} ms ({ms['backlog_pipelined_txs_per_s']:.1f} tx/s), "
-        f"sequential {ms['backlog_sequential']:.1f} ms "
-        f"({ms['backlog_sequential_txs_per_s']:.1f} tx/s), restores "
+        f"sequential over the first {ms['backlog_sequential_blocks']} blocks "
+        f"{ms['backlog_sequential']:.1f} ms ({ms['backlog_sequential_txs_per_s']:.1f} tx/s), "
+        f"restores "
         f"{ms['backlog_pipelined_restore']:.1f} / {ms['backlog_sequential_restore']:.1f} ms; "
         f"recover {ms['recover']:.1f} ms. Statuses equal validation with the batched "
         f"verdicts, the forged issue and the later double spend rejected, the backlog's runs equal, recovery "
         f"exact; {ms['batched']} transfer records batched, {ms['host']} on the host; no host "
         f"re-verification, breakers {ms['breakers']}; phase {ms['phase'] / 1e3:.1f} s")
+
+
+MESH_SHAPES = {"(2, 1)": (2, 1), "(2, 2)": (4, 2)}  # [mesh-block]: (devices, mp)
+
+
+def mesh_block_phase(pp, ctx, rblock, rbatch, batch_want, preq, prove_seed, verify_launches,
+                     prove_launches, block=BLOCK_TXS, device=None) -> dict:
+    """The verify, prove and block paths bound to logical meshes of the
+    card (`make_mesh(..., devices=[device] * n)`), (2, 1) and (2, 2):
+
+    1. `[ledger]`'s transfer block (its planted faults, the intra-block
+       double spend and the spend of the forged issue's outputs) through
+       `Network(..., mesh=mesh)` restored from the snapshot `[ledger]`
+       took before it: statuses, state, spent set and statuses of every
+       tx equal the unbound run's; every kernel of the 2-in/2-out verify
+       launched dp times as often (`verify_launches` x dp) and the stage
+       calls counted as sharded (`stages.sharded_calls`).
+    2. The `len(rbatch)`-tx 2-in/2-out batch through `BatchedTransferVerifier`
+       unbound and bound to (2, 2): the verdicts `batch_want` on both
+       sides, launches `verify_launches` and x dp, each side's time and
+       kernel time by CUDA events (the dispatch ledger's).
+    3. `TransferProver.batch` of the `len(preq)` requests with the prover
+       unbound and bound to (2, 2), one seed: equal proof bytes, launches
+       `prove_launches` and x dp, times as above.
+    4. The fused product's two modes through a bound verifier's
+       `fused=True` on the `rblock` block: the tail after a gather of
+       Miller values over mp on (2, 2), the whole product a row group on
+       (2, 1); verdicts equal the unbound ones.
+    5. `multichip_torch.main(["--logical", "--devices", "4", "--mp", "2",
+       "--result", ...])` in this process: rc 0 and `ok: true`.
+    Any host re-verification, fallback or launch count off plan fails
+    the phase. Returns the times (ms) and launches."""
+    import tempfile
+
+    import torch
+
+    import multichip_torch
+    from fabric_token_sdk_tpu_torch.api.validator import RequestValidator
+    from fabric_token_sdk_tpu_torch.crypto import transfer as tr
+    from fabric_token_sdk_tpu_torch.crypto.batch import BatchedTransferVerifier
+    from fabric_token_sdk_tpu_torch.crypto.batch_prove import prover_for
+    from fabric_token_sdk_tpu_torch.crypto.serialization import loads
+    from fabric_token_sdk_tpu_torch.drivers.zkatdlog import ZKATDLogDriver
+    from fabric_token_sdk_tpu_torch.ops import _build
+    from fabric_token_sdk_tpu_torch.parallel import make_mesh
+    from fabric_token_sdk_tpu_torch.services.network import BlockPolicy, Network
+    from fabric_token_sdk_tpu_torch.utils import devobs
+    from fabric_token_sdk_tpu_torch.utils import metrics as mx
+
+    dev = torch.device("cuda" if device is None else device)
+    on_card = dev.type == "cuda"
+    kernel_names = {k.name for k in _build.ALL_KERNELS}
+    meshes = {name: make_mesh(n, mp=mp, devices=[dev] * n) for name, (n, mp) in MESH_SHAPES.items()}
+    ms, launches = {}, {}
+    t_phase = time.perf_counter()
+
+    def times(dp: int, plan: dict) -> dict:
+        return {k: v * dp for k, v in plan.items()}
+
+    def sync():
+        if on_card:
+            torch.cuda.synchronize()
+
+    def kernel_ms() -> dict:
+        """Each kernel's device time so far by the dispatch ledger (events on
+        the card), summed over planes."""
+        out = {}
+        for (_plane, prog), e in devobs.snapshot().items():
+            if prog in kernel_names:
+                out[prog] = out.get(prog, 0.0) + e["wall_s"] * 1e3
+        return out
+
+    def run(key, fn, expect):
+        """`fn()` with every count set to 0 just before and read just after
+        (`expect`); its time between two CUDA events (the host clock on the
+        CPU) and its kernels' device time."""
+        sync()
+        k0 = kernel_ms()
+        for k in _build.ALL_KERNELS:
+            k.launches = 0
+        if on_card:
+            start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+            start.record()
+        t = time.perf_counter()
+        out = fn()
+        if on_card:
+            end.record()
+        sync()
+        ms[key] = start.elapsed_time(end) if on_card else (time.perf_counter() - t) * 1e3
+        counts = {k.name: k.launches for k in _build.ALL_KERNELS if k.launches}
+        launches[key] = counts
+        if counts != {k: v for k, v in expect.items() if v}:
+            fail(f"[mesh-block] {key} launched {counts}, expected "
+                 f"{ {k: v for k, v in expect.items() if v} }")
+        k1 = kernel_ms()
+        per = {k: v - k0.get(k, 0.0) for k, v in k1.items() if v - k0.get(k, 0.0) > 0}
+        ms[f"{key}_kernel_ms"] = per
+        ms[f"{key}_kernels"] = sum(per.values())
+        return out
+
+    base = {k: mx.counter(k).value for k in ("ledger.block.batch_errors", "batch.sign.host_fallbacks",
+                                             "stages.sharded_calls", "pairing.staged.sharded_calls")}
+
+    # ---------------------------------------------------- 1. the block on bound ledgers
+    validator = RequestValidator(ZKATDLogDriver(pp, device=device))
+    policy = BlockPolicy(max_block_txs=block, sign_batched=None if on_card else True)
+    want_end = ctx["block_end"]
+    for name, mesh in meshes.items():
+        net = Network.restore(validator, ctx["block_start"], policy=policy, device=device,
+                              mesh=mesh)
+        sharded0 = mx.counter("stages.sharded_calls").value
+        got = run(f"network_{name}", lambda: [(e.tx_id, e.status.value, e.message) for e in
+                                               net.submit_many(ctx["block_raws"])],
+                  times(mesh.shape["dp"], verify_launches))
+        if got != ctx["block_statuses"]:
+            bad = [(g, w) for g, w in zip(got, ctx["block_statuses"]) if g != w]
+            fail(f"[mesh-block] the block on the {name} mesh: {len(bad)} statuses differ from "
+                 f"the unbound run's, e.g. {bad[:2]}")
+        end = loads(net.snapshot())
+        for key in ("state", "spent", "status"):
+            if end[key] != want_end[key]:
+                fail(f"[mesh-block] the ledger's {key} on the {name} mesh differs from the "
+                     "unbound run's")
+        if mx.counter("stages.sharded_calls").value - sharded0 != 18:
+            fail(f"[mesh-block] the block on the {name} mesh made "
+                 f"{mx.counter('stages.sharded_calls').value - sharded0} sharded stage calls, "
+                 "expected 18")
+    ms["block_txs"] = len(ctx["block_raws"])
+
+    # ---------------------------------------------------- 2. the batch verify
+    mesh22 = meshes["(2, 2)"]
+    unbound = BatchedTransferVerifier(pp, device=device)
+    bound = BatchedTransferVerifier(pp, device=device, mesh=mesh22)
+    for side, v, dp in (("verify_unbound", unbound, 1), ("verify_(2, 2)", bound, 2)):
+        got = run(side, lambda: v.verify(rbatch), times(dp, verify_launches))
+        if got.tolist() != batch_want:
+            fail(f"[mesh-block] {side}: the {len(rbatch)}-tx verdicts differ from the range "
+                 "phase's")
+    ms["batch_txs"] = len(rbatch)
+
+    # ---------------------------------------------------- 3. the prove
+    proofs = {}
+    for side, mesh, dp in (("prove_unbound", None, 1), ("prove_(2, 2)", mesh22, 2)):
+        prover = prover_for(pp, device=dev, mesh=mesh)
+        proofs[side] = run(side, lambda: tr.TransferProver.batch(
+            preq, pp, rng=random.Random(prove_seed), min_batch=1, prover=prover),
+            times(dp, prove_launches))
+    prover_for(pp, device=dev)  # unbound again for later callers
+    if proofs["prove_(2, 2)"] != proofs["prove_unbound"]:
+        fail("[mesh-block] the bound prover's proof bytes differ from the unbound prover's")
+    ms["prove_requests"] = len(preq)
+
+    # ---------------------------------------------------- 4. the fused product's modes
+    want_block = unbound.verify(rblock).tolist()
+    fused_plan = {k: v for k, v in verify_launches.items()
+                  if k not in ("miller", "gt_product", "final_exp")}
+    m = verify_launches.get("miller", 0)  # one staged product a verify (0: no plan)
+    for name, extra in (("(2, 2)", {"miller": 4 * m, "gt_product_final_exp": 2 * m}),
+                        ("(2, 1)", {"pairing_product": 2 * m})):
+        v = BatchedTransferVerifier(pp, device=device, mesh=meshes[name], fused=True)
+        got = run(f"fused_{name}", lambda: v.verify(rblock), {**times(2, fused_plan), **extra})
+        if got.tolist() != want_block:
+            fail(f"[mesh-block] the fused bound verify on the {name} mesh differs from unbound")
+
+    # ---------------------------------------------------- 5. multichip_torch.py
+    with tempfile.TemporaryDirectory() as tmp:
+        result = os.path.join(tmp, "multichip.result.json")
+        t = time.perf_counter()
+        rc = multichip_torch.main(["--logical", "--device", str(dev), "--devices", "4", "--mp",
+                                   "2", "--result", result])
+        ms["multichip"] = (time.perf_counter() - t) * 1e3
+        with open(result) as fh:
+            doc = json.loads(fh.read())
+    if rc != 0 or doc.get("ok") is not True:
+        fail(f"[mesh-block] multichip_torch.py --logical --devices 4 --mp 2 exited {rc}: {doc}")
+
+    for k in ("ledger.block.batch_errors", "batch.sign.host_fallbacks"):
+        if mx.counter(k).value != base[k]:
+            fail(f"[mesh-block] host re-verification: {k} +{mx.counter(k).value - base[k]}")
+    ms.update(phase=(time.perf_counter() - t_phase) * 1e3, launches=launches,
+              sharded_calls=mx.counter("stages.sharded_calls").value - base["stages.sharded_calls"],
+              staged_pairing_sharded=mx.counter("pairing.staged.sharded_calls").value
+              - base["pairing.staged.sharded_calls"])
+    return ms
+
+
+def mesh_block_line(ms: dict) -> str:
+    """The `[mesh-block]` phase's checks, launches and times as one line."""
+    lc = ms["launches"]
+    return (
+        f"{ms['block_txs']}-tx transfer block (planted faults, a double spend) through "
+        f"Network(mesh=) from [ledger]'s snapshot on the (2, 1) and (2, 2) meshes: statuses, "
+        f"state and spent set equal the unbound run's, {ms['network_(2, 1)']:.1f} / "
+        f"{ms['network_(2, 2)']:.1f} ms (kernels {ms['network_(2, 1)_kernels']:.1f} / "
+        f"{ms['network_(2, 2)_kernels']:.1f} ms), launches {lc['network_(2, 2)']}; "
+        f"{ms['batch_txs']}-tx verify unbound {ms['verify_unbound']:.1f} ms (kernels "
+        f"{ms['verify_unbound_kernels']:.2f} ms, launches {lc['verify_unbound']}) and on (2, 2) "
+        f"{ms['verify_(2, 2)']:.1f} ms (kernels {ms['verify_(2, 2)_kernels']:.2f} ms, launches "
+        f"{lc['verify_(2, 2)']}), verdicts equal; {ms['prove_requests']}-request prove unbound "
+        f"{ms['prove_unbound']:.1f} ms (kernels {ms['prove_unbound_kernels']:.2f} ms, launches "
+        f"{lc['prove_unbound']}) and on (2, 2) {ms['prove_(2, 2)']:.1f} ms (kernels "
+        f"{ms['prove_(2, 2)_kernels']:.2f} ms, launches {lc['prove_(2, 2)']}), proof bytes "
+        f"equal for one seed; fused=True on the block: (2, 2) {ms['fused_(2, 2)']:.1f} ms "
+        f"(launches {lc['fused_(2, 2)']}), (2, 1) {ms['fused_(2, 1)']:.1f} ms (launches "
+        f"{lc['fused_(2, 1)']}), verdicts equal; multichip_torch.py --logical --devices 4 --mp 2 "
+        f"--result: ok true ({ms['multichip'] / 1e3:.1f} s); {ms['sharded_calls']} sharded "
+        f"stage calls, {ms['staged_pairing_sharded']} sharded staged products; no host "
+        f"re-verification; phase {ms['phase'] / 1e3:.1f} s; kernel ms by events, unbound / "
+        f"(2, 2): verify " + ", ".join(
+            f"{k} {v:.3f} / {ms['verify_(2, 2)_kernel_ms'].get(k, 0.0):.3f}"
+            for k, v in ms["verify_unbound_kernel_ms"].items()) + "; prove " + ", ".join(
+            f"{k} {v:.3f} / {ms['prove_(2, 2)_kernel_ms'].get(k, 0.0):.3f}"
+            for k, v in ms["prove_unbound_kernel_ms"].items()))
 
 
 def ttx_phase(pp, seed, prove_launches, block_launches, sign_launches, n_block=TTX_BLOCK,
@@ -2814,8 +3071,10 @@ def main() -> int:
         f"({', '.join(checked)} rows), each equal to its plain version bit for bit [{card}]")
 
     range_medians = medians("2-in/2-out", zip((rblock, rbatch), VERIFY_REPS["2-in/2-out"]))
-    range_spans = wf_spans + ("batch.membership.verify", "batch.range.parse", "batch.range.device",
-                              "batch.range.decode", "batch.range.challenge")
+    range_spans = wf_spans + ("batch.membership.verify", "batch.membership.parse",
+                              "batch.membership.device", "batch.membership.decode",
+                              "batch.membership.challenge", "batch.range.parse",
+                              "batch.range.device", "batch.range.decode", "batch.range.challenge")
     names = breakdown("2-in/2-out", lambda: verifier.verify(rbatch), _build.PATH_KERNELS,
                       range_spans, f"{len(rbatch)}-tx verify")
     want_names = sorted(n for n, c in RANGE_LAUNCHES.items() for _ in range(c))
@@ -2892,16 +3151,20 @@ def main() -> int:
         proofs_batch, t_pbatch, launches_pb, pin_batch = prove_counted(preq_batch, PROVE_LAUNCHES)
     proofs_wf, t_pwf, launches_pwf, _ = prove_counted(preq_wf, PROVE_WF_LAUNCHES)
 
-    # acceptance: the host verifier on every proof of the 64-tx groups,
-    # the batched verifier on the card on all of them
-    t = time.perf_counter()
-    for reqs, proofs in ((preq_block, proofs_block), (preq_wf, proofs_wf)):
+    # acceptance: the host verifier on the first PROVE_HOST_SAMPLE proofs of
+    # the 2-in/2-out group and every 1-in/1-out one, the batched verifier on
+    # the card on all of them
+    t_phost = {}
+    for key, reqs, proofs in (("2in2out", preq_block[:PROVE_HOST_SAMPLE],
+                               proofs_block[:PROVE_HOST_SAMPLE]),
+                              ("1in1out", preq_wf, proofs_wf)):
+        t = time.perf_counter()
         for (_, _, ins, outs), raw in zip(reqs, proofs):
             try:
                 tr.TransferVerifier(ins, outs, pp).verify(raw)
             except Exception as exc:  # noqa: BLE001
                 fail(f"the host verifier rejects a proof made on the card: {exc}")
-    t_phost = time.perf_counter() - t
+        t_phost[key] = time.perf_counter() - t
 
     def bump_wf(raw):
         p = tr.TransferProof.from_bytes(raw)
@@ -2947,8 +3210,9 @@ def main() -> int:
     say("prove", f"made {BLOCK_TXS}+{BATCH_TXS} 2-in/2-out and {BLOCK_TXS} 1-in/1-out prove "
         f"requests in {t_reqs:.1f} s, prover tables {t_tables:.1f} s; first prove: "
         f"{BLOCK_TXS}-tx {t_pblock * 1e3:.1f} ms, {BATCH_TXS}-tx {t_pbatch * 1e3:.1f} ms, "
-        f"1-in/1-out {BLOCK_TXS}-tx {t_pwf * 1e3:.1f} ms; the host verifier accepts all "
-        f"{2 * BLOCK_TXS} of the 64-tx groups ({t_phost:.1f} s), the batched verifier all "
+        f"1-in/1-out {BLOCK_TXS}-tx {t_pwf * 1e3:.1f} ms; the host verifier accepts the first "
+        f"{PROVE_HOST_SAMPLE} of the 2-in/2-out group ({t_phost['2in2out']:.1f} s) and all "
+        f"{BLOCK_TXS} 1-in/1-out ({t_phost['1in1out']:.1f} s), the batched verifier all "
         f"{BATCH_TXS} of the backlog ({t_pverify * 1e3:.1f} ms) and the 64-tx groups; a bumped "
         f"WF response and a bumped membership response are rejected by both; 2 txs proved on "
         f"the card and by the plain versions on the CPU from one seed: byte-identical "
@@ -3577,14 +3841,14 @@ def main() -> int:
             fail(f"the fused sharded product on the {name} mesh differs from the staged path")
         if pr.gt_is_one_host(gt.cpu().numpy()).tolist() != ps_host:
             fail(f"fused sharded PS verdicts on the {name} mesh differ from the host's")
-    for args_ in (["--fused"], []):
-        rc = multichip_torch.main(["--logical", "--devices", "4", "--mp", "2", *args_])
-        if rc != 0:
-            fail(f"multichip_torch.py --logical --devices 4 --mp 2 {' '.join(args_)} exited {rc}")
+    # the staged run, with its result file, is [mesh-block]'s
+    rc = multichip_torch.main(["--logical", "--devices", "4", "--mp", "2", "--fused"])
+    if rc != 0:
+        fail(f"multichip_torch.py --logical --devices 4 --mp 2 --fused exited {rc}")
     say("mesh", f"stage 2: {PS_SIGS} PS rows through sharded_pairing_product(fused=True): valid "
         f"rows accepted and planted rows {ps_bad} rejected on the (2, 2) and the (1, 1) mesh, "
         f"GT values equal the staged path's; launches {fused_launches}; multichip_torch.py "
-        f"--logical --devices 4 --mp 2 passes fused and staged [{card}]")
+        f"--logical --devices 4 --mp 2 --fused passes stages 0-3 [{card}]")
 
     # stage 1: Schnorr rows over the mesh's 2 row groups against the
     # rows without a mesh, bit for bit
@@ -3672,10 +3936,49 @@ def main() -> int:
         f"{SIGN_LAUNCHES}, transfer block {RANGE_LAUNCHES}, each backlog block the same "
         f"[{card}]")
 
+    # ---------------------------------------------------------------- mesh-block
+    mesh_ms = mesh_block_phase(pp, drivers_ctx, rblock, rbatch, host_r * RANGE_COPIES, preq_batch,
+                               args.seed + 17, RANGE_LAUNCHES, PROVE_LAUNCHES)
+    say("mesh-block", mesh_block_line(mesh_ms) + f" [{card}]")
+    # what the cuts of [drivers] and [ledger] saved for it, at this run's rates
+    dms, lms = drivers_ms, ledger_ms
+    saved = {
+        "drivers_block_host": dms["block_validate_host"] / dms["block_host_sample"]
+        * (BLOCK_TXS - dms["block_host_sample"]),
+        "drivers_backlog_host": dms["backlog_validate_host"] / dms["backlog_host_sample"]
+        * (BLOCK_TXS + 5 - dms["backlog_host_sample"]),
+        "ledger_sequential": lms["backlog_sequential"] / lms["backlog_sequential_blocks"]
+        * (lms["blocks_backlog"] - lms["backlog_sequential_blocks"]),
+        "prove_host": t_phost["2in2out"] * 1e3 / PROVE_HOST_SAMPLE
+        * (BLOCK_TXS - PROVE_HOST_SAMPLE),
+    }
+    mesh_ms["cuts_saved_ms"] = saved
+    say("cuts", f"[mesh-block] took {mesh_ms['phase'] / 1e3:.1f} s; the depth cut from "
+        f"earlier phases saved about {sum(saved.values()) / 1e3:.1f} s at this run's rates: "
+        f"[drivers] host validation of the block on {dms['block_host_sample']} of "
+        f"{BLOCK_TXS} requests {saved['drivers_block_host'] / 1e3:.1f} s, of the backlog on "
+        f"{dms['backlog_host_sample']} of {BLOCK_TXS + 5} {saved['drivers_backlog_host'] / 1e3:.1f}"
+        f" s, [ledger]'s sequential backlog over {lms['backlog_sequential_blocks']} of "
+        f"{lms['blocks_backlog']} blocks {saved['ledger_sequential'] / 1e3:.1f} s, [prove]'s "
+        f"host acceptance of the 2-in/2-out group on {PROVE_HOST_SAMPLE} of {BLOCK_TXS} "
+        f"proofs {saved['prove_host'] / 1e3:.1f} s")
+
     # ---------------------------------------------------------------- ttx
     ttx_ms = ttx_phase(pp, args.seed + 13, PROVE_LAUNCHES, TTX_BLOCK_LAUNCHES, SIGN_LAUNCHES)
     say("ttx", ttx_line(ttx_ms) + f"; launches: issue block {SIGN_LAUNCHES}, transfer block and "
         f"each backlog block {TTX_BLOCK_LAUNCHES}, each transfer_many {PROVE_LAUNCHES} [{card}]")
+    # this process's dispatch ledger so far: the frames whose event pair shared
+    # its stream with another thread's ([ledger]'s and [ttx]'s pipelined engines)
+    from fabric_token_sdk_tpu_torch.utils import devobs
+    dsec = devobs.section()
+    overlap = {"dispatches": dsec["dispatches"], "overlapped": dsec["dispatch_overlapped"],
+               "by_program": {f"{pl}:{pg}": e["overlapped"]
+                              for (pl, pg), e in sorted(devobs.snapshot().items())
+                              if e["overlapped"]}}
+    say("overlap", f"this process's dispatch ledger after [ttx]: {overlap['dispatches']} "
+        f"dispatches, {overlap['overlapped']} of them with an event pair open on a stream while "
+        f"another thread's was ({overlap['by_program']}); dispatch p50 "
+        f"{dsec['dispatch_p50_s']} s [{card}]")
 
     # ---------------------------------------------------------------- repl
     repl_ms = repl_phase(pp, drivers_ctx, RANGE_LAUNCHES, SIGN_LAUNCHES)
@@ -3801,6 +4104,11 @@ def main() -> int:
                 row[f"launches_repl_{node}"] = counts[row["name"]]
             row["launches_ops_verify"] = ops_cost["launches"][row["name"]]
             row["launches_ops_node"] = repl_ms["ops"]["dispatches"].get(row["name"], 0)
+        kernel = {"g1_add": "g1_addsub", "gt_product_k2": "gt_product"}.get(row["name"],
+                                                                             row["name"])
+        for key, counts in mesh_ms["launches"].items():
+            row[f"launches_mesh_block_{key}"] = counts.get(kernel, 0)
+            row[f"ms_mesh_block_{key}"] = mesh_ms[f"{key}_kernel_ms"].get(kernel, 0.0)
         if row["name"] in ops_cost["programs"]:
             v = ops_cost["programs"][row["name"]]
             row.update(ledger_ms_block=v["ms"], ledger_rows_block=v["rows"])
@@ -3814,6 +4122,8 @@ def main() -> int:
         "ledger_ms": {k: v for k, v in ledger_ms.items() if k != "launches"},
         "ttx_ms": {k: v for k, v in ttx_ms.items() if k != "launches"},
         "repl_ms": {k: v for k, v in repl_ms.items() if k not in ("launches", "ops")},
+        "mesh_block_ms": {k: v for k, v in mesh_ms.items() if k != "launches"},
+        "overlap": overlap,
         "ops": {"cost": {k: v for k, v in ops_cost.items() if k != "launches"},
                 "node": repl_ms["ops"]},
         "build_s": t_build}), flush=True)

@@ -141,10 +141,10 @@ class Driver(abc.ABC):
     def batch_verifier(self, mesh=None):
         """The driver's block-batched transfer-proof verifier (an object
         with `verify(rows) -> bool array`), or None when the driver has
-        no batched plane (default). `mesh` is kept for the reference's
-        signature: the port's batched planes take none, and a driver
-        with a device plane raises NotImplementedError for any mesh
-        other than None; drivers without one ignore it."""
+        no batched plane (default). `mesh` is a `parallel.sharding.
+        DeviceMesh` to bind the verifier to (its stage calls over the
+        mesh's row groups), re-bound on every call, None unbinding; a
+        driver without a batched plane ignores it."""
         return None
 
     def batch_prover(self, mesh=None):

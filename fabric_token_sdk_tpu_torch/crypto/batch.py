@@ -18,6 +18,19 @@ block of mixed shapes raises `NotImplementedError`.
 
 `BatchedPSVerifier` checks Pointcheval-Sanders signatures the same way,
 as 2-leg pairing products.
+
+Each verifier takes an optional `DeviceMesh` (`mesh=`, `set_mesh`; the
+reference's `_MeshBound`, here `parallel.sharding.MeshBound`): its stage
+calls then run over the mesh's row groups and its pairing products
+through `sharded_pairing_product` (`fused=` picks the fused product, off
+by default as in the reference). The window tables are copied to each
+device of the mesh when it is bound. Verdicts never depend on the mesh;
+`mesh=None` is one launch a stage over all rows.
+
+Spans: `batch.<plane>.verify` around each verify, and inside it
+`batch.wf.*`, `batch.membership.*` and `batch.range.*` (parse, encode,
+device, decode, challenge), each leaf named by the verifier that opens
+it, so no span total holds another verifier's work.
 """
 
 from __future__ import annotations
@@ -34,6 +47,7 @@ from .setup import PublicParams
 from .transfer import TransferProof
 from .wellformedness import TransferWF, challenge_transfer_wf
 from ..ops import curve as cv, curve2 as cv2, limbs as lb, pairing as pr, stages as st, tower as tw
+from ..parallel.sharding import DeviceMesh, MeshBound as _MeshBound, sharded_pairing_product
 from ..utils import devobs
 from ..utils import metrics as mx
 
@@ -69,14 +83,18 @@ def _spanned(name):
     return deco
 
 
-class BatchedWFVerifier:
+class BatchedWFVerifier(_MeshBound):
     """Recomputes all Schnorr commitments of B same-shape transfer WF
     proofs through the row stages, then re-derives challenges on host."""
 
-    def __init__(self, pp: PublicParams, device=None):
+    def __init__(self, pp: PublicParams, device=None, mesh: Optional[DeviceMesh] = None):
         self.pp = pp
         self.device = resolve_device(device)
         self.table = cv.FixedBaseTable(pp.ped_params).to(self.device)
+        self.set_mesh(mesh)
+
+    def _mesh_tables(self) -> tuple:
+        return (self.table.table,)
 
     @_spanned("batch.wf.verify")
     def verify(self, txs: Sequence[Tuple[list, list, bytes]]) -> np.ndarray:
@@ -99,9 +117,9 @@ class BatchedWFVerifier:
         # com_j = prod ped_i^{resp_ji} - stmt_j^challenge over B*n flat rows;
         # the span ends when the result is back on the host
         with mx.span("batch.wf.device", rows=B * n):
-            fixed = self.table(resp_t)
-            sc = st.g1_mul_rows(stmt_t, chal_t)
-            coms = st.g1_sub_rows(fixed, sc).cpu().numpy()
+            fixed = self._run(st.g1_msm_rows, resp_t, consts=(self.table.table,))
+            sc = self._run(st.g1_mul_rows, stmt_t, chal_t)
+            coms = self._run(st.g1_sub_rows, fixed, sc).cpu().numpy()
         with mx.span("batch.wf.decode"):
             com_pts = cv.decode_points(coms)  # B*n host points
         out = np.zeros(B, dtype=bool)
@@ -165,17 +183,20 @@ def _upload(arr: np.ndarray, dev: torch.device) -> torch.Tensor:
     return torch.from_numpy(np.ascontiguousarray(arr)).to(dev)
 
 
-class BatchedMembershipVerifier:
+class BatchedMembershipVerifier(_MeshBound):
     """Verifies B membership proofs (the per-digit unit of range proofs).
 
     Device: the GT commitment as 4-leg pairing products and the G1
     commitment as fixed- and variable-base multiexps, one launch per
-    stage over all B proofs. Host: the per-proof Fiat-Shamir challenge.
+    stage over all B proofs (a row group of a bound mesh). Host: the
+    per-proof Fiat-Shamir challenge.
     """
 
-    def __init__(self, pp: PublicParams, device=None):
+    def __init__(self, pp: PublicParams, device=None, mesh: Optional[DeviceMesh] = None,
+                 fused: bool = False):
         self.pp = pp
         self.device = resolve_device(device)
+        self.fused = fused
         rp = pp.range_params
         self.pk = rp.sign_pk
         self.Q = rp.Q
@@ -187,6 +208,10 @@ class BatchedMembershipVerifier:
         self.pk0_aff = _upload(pr.encode_g2([self.pk[0]])[0], dev)
         self.table2 = cv.FixedBaseTable(self.ped2).to(dev)
         self.tableP = cv.FixedBaseTable([self.P]).to(dev)
+        self.set_mesh(mesh)
+
+    def _mesh_tables(self) -> tuple:
+        return (self.table2.table, self.tableP.table)
 
     @_spanned("batch.membership.verify")
     def verify(self, proofs: Sequence[sigproof.MembershipProof], commitments: Sequence) -> np.ndarray:
@@ -195,7 +220,7 @@ class BatchedMembershipVerifier:
             return np.zeros(0, dtype=bool)
         mx.counter("batch.membership.proofs").inc(B)
         dev = self.device
-        with mx.span("batch.range.parse", rows=B):
+        with mx.span("batch.membership.parse", rows=B):
             z = np.stack([
                 cv.encode_scalars([p.value_resp for p in proofs]),
                 cv.encode_scalars([p.hash_resp for p in proofs]),
@@ -207,42 +232,44 @@ class BatchedMembershipVerifier:
             S_aff = pr.encode_g1([p.signature.S for p in proofs])
             R_aff = pr.encode_g1([p.signature.R for p in proofs])
             com_jac = cv.encode_points(commitments)
-        with mx.span("batch.range.device", rows=B):
+        with mx.span("batch.membership.device", rows=B):
+            run = self._run
             z_t = _upload(z, dev)
             S_t, R_t = _upload(S_aff, dev), _upload(R_aff, dev)
             # G2 term: t = PK1^{z_v} + PK2^{z_h}
             bases = self.pk12.unsqueeze(0).expand((B,) + tuple(self.pk12.shape)).reshape(
                 (2 * B,) + tuple(self.pk12.shape[1:])).contiguous()
-            terms = st.g2_mul_rows(bases, z_t[:, 0:2].reshape(2 * B, lb.NWORDS).contiguous())
+            terms = run(st.g2_mul_rows, bases, z_t[:, 0:2].reshape(2 * B, lb.NWORDS).contiguous())
             terms = terms.reshape((B, 2) + tuple(terms.shape[1:]))
-            t_aff = st.g2_to_affine_rows(st.g2_add_rows(terms[:, 0].contiguous(), terms[:, 1].contiguous()))
+            t_aff = run(st.g2_to_affine_rows, run(st.g2_add_rows, terms[:, 0].contiguous(),
+                                                  terms[:, 1].contiguous()))
             # G1 sides: -S^c as S^{r-c}, R^c and P^{z_bf}; one to-affine
             # launch for all three. An affine (0, 0) (S or R at infinity)
             # enters as the Jacobian (0, 0, 1), as in the reference.
             Sj = _upload(st.affine_to_jac_np(S_aff), dev)
             Rj = _upload(st.affine_to_jac_np(R_aff), dev)
-            powc = st.g1_mul_rows(torch.cat([Sj, Rj]),
-                                  torch.cat([_upload(neg_chal, dev), z_t[:, 3]]).contiguous())
-            Pz = self.tableP(z_t[:, 2:3].contiguous())
-            aff = st.g1_to_affine_rows(torch.cat([powc, Pz]))
+            powc = run(st.g1_mul_rows, torch.cat([Sj, Rj]),
+                       torch.cat([_upload(neg_chal, dev), z_t[:, 3]]).contiguous())
+            Pz = run(st.g1_msm_rows, z_t[:, 2:3].contiguous(), consts=(self.tableP.table,))
+            aff = run(st.g1_to_affine_rows, torch.cat([powc, Pz]))
             negSc, Rc, Pz_aff = aff[:B], aff[B : 2 * B], aff[2 * B :]
             # G1 commitment: ped0^{z_v} ped1^{z_cb} - com^c
-            fixed = self.table2(_upload(com_resp, dev))
-            comc = st.g1_mul_rows(_upload(com_jac, dev), z_t[:, 3].contiguous())
-            com_val = st.g1_sub_rows(fixed, comc)
+            fixed = run(st.g1_msm_rows, _upload(com_resp, dev), consts=(self.table2.table,))
+            comc = run(st.g1_mul_rows, _upload(com_jac, dev), z_t[:, 3].contiguous())
+            com_val = run(st.g1_sub_rows, fixed, comc)
             # 4-leg pairing products; no infinity mask (the reference
             # passes none: a leg at infinity enters the Miller loop as
             # the affine (0, 0))
             Ps = torch.stack([negSc, Rc, R_t, Pz_aff], dim=1)  # (B, 4, 2, 8)
             Qs = torch.stack([self.Q_aff.expand_as(t_aff), self.pk0_aff.expand_as(t_aff), t_aff,
                               self.Q_aff.expand_as(t_aff)], dim=1)  # (B, 4, 2, 2, 8)
-            gt = pr.pairing_product_staged(Ps, Qs).cpu().numpy()
+            gt = sharded_pairing_product(Ps, Qs, self.mesh, fused=self.fused).cpu().numpy()
             com_np = com_val.cpu().numpy()
-        with mx.span("batch.range.decode", rows=B):
+        with mx.span("batch.membership.decode", rows=B):
             gt_host = tw.decode_fp12(gt)
             com_host = cv.decode_points(com_np)
         out = np.zeros(B, dtype=bool)
-        with mx.span("batch.range.challenge", rows=B):
+        with mx.span("batch.membership.challenge", rows=B):
             for i, (p, com) in enumerate(zip(proofs, commitments)):
                 if p.commitment != com:
                     continue
@@ -251,19 +278,22 @@ class BatchedMembershipVerifier:
         return out
 
 
-class BatchedPSVerifier:
+class BatchedPSVerifier(_MeshBound):
     """Verifies B Pointcheval-Sanders signatures on l-message vectors:
     e(-S, Q) * e(R, H) == 1 with H = PK0 + sum PK_i^{m_i} + PK_{l+1}^{hash}
     built on the card (G2 ladder, a host-folded tree of G2 adds, to-affine)
     and the two legs through the staged K = 2 pairing product. Rows that
     do not parse (wrong message count, no signature) verify False."""
 
-    def __init__(self, pk, Q, device=None):
+    def __init__(self, pk, Q, device=None, mesh: Optional[DeviceMesh] = None,
+                 fused: bool = False):
         self.pk_host = list(pk)
         self.Q_host = Q
         self.device = resolve_device(device)
+        self.fused = fused
         self.pk = _upload(cv2.encode_points(self.pk_host), self.device)  # (l+2, 3, 2, 8)
         self.Q_aff = _upload(pr.encode_g2([Q])[0], self.device)  # (2, 2, 8)
+        self.set_mesh(mesh)
 
     @_spanned("batch.ps.verify")
     def verify(self, messages_rows: Sequence[Sequence[int]], sigs) -> np.ndarray:
@@ -292,34 +322,48 @@ class BatchedPSVerifier:
         dev = self.device
         shape = tuple(self.pk.shape[1:])
         bases = self.pk[1:].unsqueeze(0).expand((B, k) + shape).reshape((B * k,) + shape)
-        terms = st.g2_mul_rows(bases.contiguous(), _upload(scal.reshape(B * k, lb.NWORDS), dev))
-        acc = st.g2_tree_sum_rows(terms.reshape((B, k) + shape))
-        acc = st.g2_add_rows(acc.contiguous(), self.pk[0].expand_as(acc).contiguous())
-        H_aff = st.g2_to_affine_rows(acc)  # (B, 2, 2, 8)
+        run = self._run
+        terms = run(st.g2_mul_rows, bases.contiguous(), _upload(scal.reshape(B * k, lb.NWORDS), dev))
+        acc = run(st.g2_tree_sum_rows, terms.reshape((B, k) + shape))
+        acc = run(st.g2_add_rows, acc.contiguous(), self.pk[0].expand_as(acc).contiguous())
+        H_aff = run(st.g2_to_affine_rows, acc)  # (B, 2, 2, 8)
         Ps = _upload(np.stack([pr.encode_g1(negS), pr.encode_g1(R)], axis=1), dev)
         Qs = torch.stack([self.Q_aff.expand_as(H_aff), H_aff], dim=1)  # (B, 2, 2, 2, 8)
-        out = pr.gt_is_one_host(pr.pairing_product_staged(Ps, Qs).cpu().numpy())
+        gt = sharded_pairing_product(Ps, Qs, self.mesh, fused=self.fused)
+        out = pr.gt_is_one_host(gt.cpu().numpy())
         out[malformed] = False
         return out
 
 
-class BatchedTransferVerifier:
+class BatchedTransferVerifier(_MeshBound):
     """Verifies whole blocks of same-shape zkatdlog transfer proofs.
 
     Mirrors `transfer.TransferVerifier`, with the group and pairing work
-    of ALL transactions in one launch per stage: the well-formedness
-    proofs, then (unless the shape is 1-in/1-out) the range proofs'
-    membership proofs, flattened over (tx, output, digit), and their
-    equality proofs. A block of mixed shapes raises NotImplementedError.
+    of ALL transactions in one launch per stage (a row group of a bound
+    mesh): the well-formedness proofs, then (unless the shape is
+    1-in/1-out) the range proofs' membership proofs, flattened over (tx,
+    output, digit), and their equality proofs. A block of mixed shapes
+    raises NotImplementedError.
     """
 
-    def __init__(self, pp: PublicParams, device=None):
+    def __init__(self, pp: PublicParams, device=None, mesh: Optional[DeviceMesh] = None,
+                 fused: bool = False):
         self.pp = pp
         self.device = resolve_device(device)
         self.wf = BatchedWFVerifier(pp, device=self.device)
-        self.membership = BatchedMembershipVerifier(pp, device=self.device)
+        self.membership = BatchedMembershipVerifier(pp, device=self.device, fused=fused)
         self.table3 = self.wf.table  # ped 3-base table
         self.table2 = self.membership.table2  # ped[:2]
+        self.set_mesh(mesh)
+
+    def set_mesh(self, mesh: Optional[DeviceMesh]) -> None:
+        """Bind this verifier and its WF and membership parts to `mesh`
+        (None unbinds); the equality proofs share their parts' table
+        copies."""
+        self.wf.set_mesh(mesh)
+        self.membership.set_mesh(mesh)
+        self.mesh = self.wf.mesh
+        self._replicas = {**self.wf._replicas, **self.membership._replicas}
 
     @_spanned("batch.transfer.verify")
     def verify(self, txs: Sequence[Tuple[list, list, bytes]]) -> np.ndarray:
@@ -419,10 +463,13 @@ class BatchedTransferVerifier:
         dev = self.device
         with mx.span("batch.range.device", rows=rows):
             chal_t = _upload(chal_rep, dev)
-            com_tok = st.g1_sub_rows(self.table3(_upload(tok_resp, dev)),
-                                     st.g1_mul_rows(_upload(tok_stmt, dev), chal_t))
-            com_val = st.g1_sub_rows(self.table2(_upload(agg_resp, dev)),
-                                     st.g1_mul_rows(_upload(agg_stmt, dev), chal_t))
+            run = self._run
+            com_tok = run(st.g1_sub_rows,
+                          run(st.g1_msm_rows, _upload(tok_resp, dev), consts=(self.table3.table,)),
+                          run(st.g1_mul_rows, _upload(tok_stmt, dev), chal_t))
+            com_val = run(st.g1_sub_rows,
+                          run(st.g1_msm_rows, _upload(agg_resp, dev), consts=(self.table2.table,)),
+                          run(st.g1_mul_rows, _upload(agg_stmt, dev), chal_t))
             com_tok, com_val = com_tok.cpu().numpy(), com_val.cpu().numpy()
         with mx.span("batch.range.decode", rows=rows):
             com_tok_h = cv.decode_points(com_tok)

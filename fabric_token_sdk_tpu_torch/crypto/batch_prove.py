@@ -17,6 +17,13 @@ draws) and the host work is the reference's, so for the same
 `random.Random` seed the proof bytes equal the JAX package's batched
 prover's, and the host `TransferVerifier` accepts them.
 
+A prover takes an optional `DeviceMesh` (`mesh=`, `set_mesh`, and
+`prover_for(pp, device, mesh)`, which re-binds a cached prover as the
+reference's does): each stage then runs over the mesh's row groups, its
+committers' tables copied to the mesh's devices when it is bound, and
+the K = 2 product through `sharded_pairing_product`. The proof bytes do
+not depend on the mesh.
+
 Every scalar the prover multiplies by is secret, so each fixed-base
 multiexp takes the select form (`g1_msm_select`: all 16 window entries
 read, the digit's kept by a mask), and the variable-base ladders
@@ -39,6 +46,7 @@ from .pedersen import BatchedPedersen
 from .setup import PublicParams
 from .transfer import TransferProof, _skip_range
 from ..ops import curve as cv, curve2 as cv2, limbs as lb, pairing as pr, stages as st, tower as tw
+from ..parallel.sharding import DeviceMesh, MeshBound, sharded_pairing_product
 from ..utils import devobs
 from ..utils import metrics as mx
 
@@ -49,7 +57,7 @@ def _scalar_rows(rows: Sequence[Sequence[int]], width: int) -> np.ndarray:
     return flat.reshape(len(rows), width, lb.NWORDS)
 
 
-class BatchedTransferProver(torch.nn.Module):
+class BatchedTransferProver(MeshBound, torch.nn.Module):
     """Generates whole batches of same-shape zkatdlog transfer proofs.
 
     State, all buffers on the prover's device (`.to()` moves them): the
@@ -61,7 +69,7 @@ class BatchedTransferProver(torch.nn.Module):
     batch sizes.
     """
 
-    def __init__(self, pp: PublicParams, device=None):
+    def __init__(self, pp: PublicParams, device=None, mesh: Optional[DeviceMesh] = None):
         super().__init__()
         self.pp = pp
         dev = resolve_device(device)
@@ -77,10 +85,18 @@ class BatchedTransferProver(torch.nn.Module):
             self.register_buffer("sig_S", torch.from_numpy(
                 cv.encode_points([s.S for s in rp.signed_values])))
         self.to(dev)
+        self.set_mesh(mesh)
 
     @property
     def device(self) -> torch.device:
         return self.ped3.device
+
+    def set_mesh(self, mesh: Optional[DeviceMesh]) -> None:
+        """Bind the prover and its committers to `mesh` (None unbinds)."""
+        for ped in (self.ped3, self.ped2, self.pedP):
+            if ped is not None:
+                ped.set_mesh(mesh)
+        super().set_mesh(mesh)
 
     # ------------------------------------------------------------ helpers
 
@@ -186,19 +202,20 @@ class BatchedTransferProver(torch.nn.Module):
             coms3 = self.ped3.commit_rows(s3.reshape(n3, 3, lb.NWORDS))
             # signature randomisation (R^r, S^r), then obfuscation
             # S'' = S^r + P^sig_bf; P^rho_bf goes to the transcript
+            run = self._run
             dig = _upload(digit_idx, self.device)
-            rnd = st.g1_mul_rows(torch.cat([self.sig_R.index_select(0, dig),
-                                            self.sig_S.index_select(0, dig)]),
-                                 torch.cat([r, r]))
+            rnd = run(st.g1_mul_rows, torch.cat([self.sig_R.index_select(0, dig),
+                                                 self.sig_S.index_select(0, dig)]),
+                      torch.cat([r, r]))
             p_bf = self.pedP.commit_rows(pbf.reshape(2 * M, 1, lb.NWORDS))
-            obf_S = st.g1_add_rows(rnd[M:], p_bf[:M])
+            obf_S = run(st.g1_add_rows, rnd[M:], p_bf[:M])
             host = torch.cat([coms2, coms3, rnd[:M], obf_S, p_bf[M:]]).cpu().numpy()
             # GT pre-commitments, G2 side: t = PK1^rho_v + PK2^rho_h,
             # queued before the host decode below so that it overlaps it
             g2_bases = torch.cat([self.pk[1].expand((M,) + tuple(self.pk.shape[1:])),
                                   self.pk[2].expand((M,) + tuple(self.pk.shape[1:]))])
-            terms = st.g2_mul_rows(g2_bases.contiguous(), g2s)
-            t_aff = st.g2_to_affine_rows(st.g2_add_rows(terms[:M], terms[M:]))
+            terms = run(st.g2_mul_rows, g2_bases.contiguous(), g2s)
+            t_aff = run(st.g2_to_affine_rows, run(st.g2_add_rows, terms[:M], terms[M:]))
 
         # one host decode pass for every point that enters a transcript
         with mx.span("batch.prove.decode", rows=len(host)):
@@ -212,7 +229,7 @@ class BatchedTransferProver(torch.nn.Module):
         # com_gt = e(R', t) * e(P^rho_bf, Q): the staged K = 2 product
         with mx.span("batch.prove.device", rows=M):
             Qs = torch.stack([t_aff, self.Q.expand_as(t_aff)], dim=1)  # (M, 2, 2, 2, 8)
-            gt = pr.pairing_product_staged(_upload(Ps, self.device), Qs).cpu().numpy()
+            gt = sharded_pairing_product(_upload(Ps, self.device), Qs, self.mesh).cpu().numpy()
         with mx.span("batch.prove.decode", rows=M):
             gts = tw.decode_fp12(gt)
 
@@ -289,12 +306,18 @@ _CACHE: List[Tuple[PublicParams, torch.device, BatchedTransferProver]] = []
 _CACHE_CAP = 4
 
 
-def prover_for(pp: PublicParams, device=None) -> BatchedTransferProver:
+def prover_for(pp: PublicParams, device=None,
+               mesh: Optional[DeviceMesh] = None) -> BatchedTransferProver:
+    """The cached prover of `pp` on `device`, built on first use. The cache
+    keeps the tables; `mesh` is re-bound on every call, None unbinding, so
+    a caller never inherits a mesh another caller bound (the reference's
+    contract, `batch_prove.py:309-318`)."""
     dev = resolve_device(device)
     for cached_pp, cached_dev, prover in _CACHE:
         if cached_pp is pp and cached_dev == dev:
+            prover.set_mesh(mesh)
             return prover
-    prover = BatchedTransferProver(pp, device=dev)
+    prover = BatchedTransferProver(pp, device=dev, mesh=mesh)
     _CACHE.append((pp, dev, prover))
     if len(_CACHE) > _CACHE_CAP:
         _CACHE.pop(0)

@@ -30,24 +30,28 @@ from . import hostmath as hm, sign
 from .batch import _spanned, _upload, resolve_device
 from .serialization import loads
 from ..ops import curve as cv
-from ..parallel.sharding import DeviceMesh, sharded_schnorr_rows
+from ..parallel.sharding import DeviceMesh, MeshBound, schnorr_rows
 from ..utils import metrics as mx
 
 
-class BatchedSchnorrVerifier:
+class BatchedSchnorrVerifier(MeshBound):
     """Verifies B long-term Schnorr signatures through the G1 stages.
 
     Rows are `(pk_point, message, sig_raw)`: the public-key point, the
     exact message bytes the host path would verify, and the raw
     signature blob. The generator's 1-base window table is a device
-    buffer, built once per verifier. With a `DeviceMesh` the rows run
-    over its row groups, each on its own device (`sharded_schnorr_rows`);
-    the verdicts do not change."""
+    buffer, built once per verifier. Bound to a `DeviceMesh` (`mesh=`,
+    `set_mesh`) the rows run over its row groups, each on its own device
+    with the table copied there when the mesh is bound (the composition
+    of `sharded_schnorr_rows`); the verdicts do not change."""
 
     def __init__(self, device=None, mesh: Optional[DeviceMesh] = None):
         self.device = resolve_device(device)
-        self.mesh = mesh
         self.table = cv.FixedBaseTable([hm.G1_GEN]).to(self.device)
+        self.set_mesh(mesh)
+
+    def _mesh_tables(self) -> tuple:
+        return (self.table.table,)
 
     @_spanned("batch.sign.verify")
     def verify(self, rows: Sequence[Tuple[object, bytes, bytes]]) -> List[Optional[bool]]:
@@ -77,8 +81,8 @@ class BatchedSchnorrVerifier:
         resp = cv.encode_scalars([parsed[i][1] for i in live])[:, None, :]
         chal = cv.encode_scalars([parsed[i][0] for i in live])
         pks = cv.encode_points([rows[i][0] for i in live])
-        coms = sharded_schnorr_rows(self.table, _upload(resp, dev), _upload(pks, dev),
-                                    _upload(chal, dev), mesh=self.mesh)
+        coms = self._run(schnorr_rows, _upload(resp, dev), _upload(pks, dev), _upload(chal, dev),
+                         consts=(self.table.table,))
         com_pts = cv.decode_points(coms.cpu().numpy())
         # counted on completion only: a device failure above raises first
         mx.counter("batch.sign.rows").inc(len(live))

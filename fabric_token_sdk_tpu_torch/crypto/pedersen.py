@@ -8,12 +8,13 @@ commit(hash(type), value; bf) over PedParams).
 
 from __future__ import annotations
 
-from typing import Sequence
+from typing import Optional, Sequence
 
 import torch
 
 from . import hostmath as hm
 from ..ops import curve as cv, limbs as lb, stages as st
+from ..parallel.sharding import DeviceMesh, MeshBound
 
 
 def commit(openings: Sequence[int], bases: Sequence, curve=None):
@@ -23,28 +24,36 @@ def commit(openings: Sequence[int], bases: Sequence, curve=None):
     return hm.g1_multiexp(list(bases), [o % hm.R for o in openings])
 
 
-class BatchedPedersen(torch.nn.Module):
+class BatchedPedersen(MeshBound, torch.nn.Module):
     """Batched fixed-base committer: B commitments over the same bases in
     one `g1_msm_select` launch (counterpart of the JAX package's
     `crypto/pedersen.py:BatchedPedersen`, the commit engine of the batched
     transfer prover). The openings are secret, so every method goes
     through the select form of the multiexp, never the gather. The
     window table is a submodule buffer: `.to(device)` moves it, and the
-    commitments are computed where it lies."""
+    commitments are computed where it lies. Bound to a mesh
+    (`set_mesh`, after any `.to`), a commitment batch runs one launch a
+    row group, the table copied to each of the mesh's devices when it is
+    bound; the select form is constant-time in the digits on every row
+    group alike."""
 
-    def __init__(self, bases: Sequence):
+    def __init__(self, bases: Sequence, mesh: Optional[DeviceMesh] = None):
         super().__init__()
         self.bases = list(bases)
         self.table = cv.FixedBaseTable(self.bases)
+        self.set_mesh(mesh)
 
     @property
     def device(self) -> torch.device:
         return self.table.table.device
 
+    def _mesh_tables(self) -> tuple:
+        return (self.table.table,)
+
     def commit_rows(self, scalars: torch.Tensor) -> torch.Tensor:
         """Canonical scalar words (N, nbases, 8) on the table's device ->
-        (N, 3, 8) Jacobian words there."""
-        return st.g1_msm_select_rows(self.table.table, scalars)
+        (N, 3, 8) Jacobian words there, over the bound mesh's row groups."""
+        return self._run(st.g1_msm_select_rows, scalars, consts=(self.table.table,))
 
     def commit_ints(self, openings_rows: Sequence[Sequence[int]]):
         """Host int rows -> (host points, Jacobian words on the device):

@@ -34,14 +34,6 @@ from .. import identity
 _ZTOKENS = BytesCache(ZkToken.from_bytes)
 
 
-def _no_mesh(mesh) -> None:
-    if mesh is not None:
-        raise NotImplementedError(
-            "the port's batched transfer verifier and prover take no mesh: "
-            "call batch_verifier()/batch_prover() with mesh=None"
-        )
-
-
 class ZKATDLogDriver(Driver):
     name = "zkatdlog"
     supports_anonymous_issue = True
@@ -311,24 +303,27 @@ class ZKATDLogDriver(Driver):
         """The cached `BatchedTransferVerifier` on the driver's device,
         built on the first call (the import and the window tables stay
         out of the constructor, so building a driver stays light). The
-        port's verifiers take no mesh: a mesh other than None raises
-        NotImplementedError rather than run unsharded."""
-        _no_mesh(mesh)
+        cache holds the tables; `mesh` (a `DeviceMesh` whose first device
+        is the driver's) is re-bound on every call, None unbinding, so each
+        caller (each block pipeline sharing this driver) gets the dispatch
+        it asked for, never a mesh another caller left bound."""
         if self._batch_verifier is None:
             from ...crypto.batch import BatchedTransferVerifier
 
-            self._batch_verifier = BatchedTransferVerifier(self.pp, device=self.device)
+            self._batch_verifier = BatchedTransferVerifier(self.pp, device=self.device,
+                                                           mesh=mesh)
+        else:
+            self._batch_verifier.set_mesh(mesh)
         return self._batch_verifier
 
     def batch_prover(self, mesh=None):
         """The `BatchedTransferProver` on the driver's device, the
         prove-side twin of `batch_verifier`: the module-level
-        `prover_for` cache that `TransferProver.batch` shares. A mesh
-        other than None raises, as in `batch_verifier`."""
-        _no_mesh(mesh)
+        `prover_for` cache that `TransferProver.batch` shares, `mesh`
+        re-bound on every call as in `batch_verifier`."""
         from ...crypto.batch_prove import prover_for
 
-        return prover_for(self.pp, device=self.device)
+        return prover_for(self.pp, device=self.device, mesh=mesh)
 
     # ------------------------------------------------------------ tokens
 

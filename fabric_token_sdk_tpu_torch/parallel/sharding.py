@@ -8,7 +8,14 @@ back to the caller's device in row order, the padding sliced off.
 
 * `run_rows_dp` runs a `*_rows` stage function, or a composition of
   them such as `sharded_schnorr_rows`, once a row group on the group's
-  first device: bit-identical to one call over all rows.
+  first device: bit-identical to one call over all rows. A call over
+  dp > 1 groups counts `stages.sharded_calls` and its groups
+  `stages.shards`, the reference's names.
+* `sharded_pairing_product` without `fused` runs the staged sequence
+  once a row group on the group's first device
+  (`pairing.staged.sharded_calls`, `pairing.staged.shards`). The legs
+  split over mp only in the fused product: the staged kernels take all
+  K legs of a row in one launch.
 * `sharded_pairing_product(fused=True)` is the port of the reference's
   `shard_map` program, single-controller as it is. For each cell (i, j)
   the Miller loops of row span i and leg span j run on device (i, j);
@@ -17,15 +24,21 @@ back to the caller's device in row order, the padding sliced off.
   (`csrc/pairing_fused.cu`, `fts_gt_product_final_exp`). The reference
   runs that tail on every device of the row and keeps one copy; here it
   runs once. When mp = 1 a row group is one launch of
-  `fts_pairing_product`, the whole product a row. Without `fused` each
-  row group runs the staged sequence on its device.
+  `fts_pairing_product`, the whole product a row.
+* `MeshBound` is the batched planes' binding to a mesh (the reference's
+  `crypto/batch.py:_MeshBound`): `set_mesh(mesh)` binds a plane and
+  copies its fixed tensors (the window tables) once to each distinct
+  device of the mesh, and `_run(rows_fn, *arrays, consts=())` dispatches
+  a stage over the mesh's row groups, or calls it directly when the
+  plane is unbound. Results never depend on the mesh.
 
 Launches to different devices are queued from the caller's thread and
 run concurrently on the cards; a logical mesh (a device list that
 repeats one device, `make_mesh(devices=...)`) runs its row groups one
 after another on that device. No mesh (None) is one launch a stage over
 all rows on the tensors' device. A `MeshConfig` is a mesh's shape only:
-it names no device, and the entry points refuse it.
+it names no device, and the entry points and `set_mesh` refuse it
+(`TypeError`).
 
 Each mesh call is one dispatch of the ledger (`utils/devobs.py`), timed
 on the card by its devices' events, beside the dispatches of the kernels
@@ -38,7 +51,7 @@ decision. A device error propagates: there is no unsharded re-run.
 from __future__ import annotations
 
 from dataclasses import dataclass
-from typing import Optional, Sequence, Tuple
+from typing import Dict, Optional, Sequence, Tuple
 
 import torch
 
@@ -168,19 +181,39 @@ def _on_row_groups(body, arrays, mesh: DeviceMesh) -> torch.Tensor:
     return torch.cat([o.to(arrays[0].device) for o in outs])[:B]
 
 
-def run_rows_dp(rows_fn, *arrays, mesh: Optional[DeviceMesh] = None, consts=()) -> torch.Tensor:
+def _count_sharded(calls, shards, n: int) -> None:
+    """A dispatch over n > 1 row groups of the mesh: one call and n shards
+    on the two counters."""
+    if n > 1:
+        calls.inc()
+        shards.inc(n)
+
+
+def run_rows_dp(rows_fn, *arrays, mesh: Optional[DeviceMesh] = None, consts=(),
+                placed: Optional[Dict[tuple, torch.Tensor]] = None) -> torch.Tensor:
     """`rows_fn(*consts, *arrays)` over the mesh's row groups, each on its
-    first device with `consts` (tables) copied there; one call on the
-    tensors' device without a mesh. Bit-identical either way."""
+    first device with `consts` (tables) there: the copy `placed` holds
+    under `(id(const), str(device))` (a bound plane's, made when it was
+    bound), else one made for the call. One call on the tensors' device
+    without a mesh. Bit-identical either way."""
     if mesh is None:
         return rows_fn(*consts, *arrays)
     mesh = _device_mesh(mesh)
     B, dp = arrays[0].shape[0], mesh.shape["dp"]
+    placed = placed or {}
+
+    def on(x, dev):
+        copy = placed.get((id(x), str(dev)))
+        return x.to(dev) if copy is None else copy
+
     with devobs.dispatch(rows_fn.__name__, rows=B, padded_rows=(-B) % dp, dp=dp,
                          mp=mesh.shape["mp"], device=_mesh_devices(mesh)):
-        return _on_row_groups(
-            lambda group, *spans: rows_fn(*(x.to(group[0]) for x in (*consts, *spans))),
+        out = _on_row_groups(
+            lambda group, *spans: rows_fn(*(on(c, group[0]) for c in consts),
+                                          *(x.to(group[0]) for x in spans)),
             arrays, mesh)
+    _count_sharded(mx.counter("stages.sharded_calls"), mx.counter("stages.shards"), dp)
+    return out
 
 
 def schnorr_rows(table: torch.Tensor, resp: torch.Tensor, stmts: torch.Tensor,
@@ -199,6 +232,11 @@ def sharded_schnorr_rows(table, resp: torch.Tensor, stmts: torch.Tensor, chals: 
     there."""
     tab = table.table if isinstance(table, cv.FixedBaseTable) else table
     return run_rows_dp(schnorr_rows, resp, stmts, chals, mesh=mesh, consts=(tab,))
+
+
+def _staged_row_group(group, P: torch.Tensor, Q: torch.Tensor) -> torch.Tensor:
+    """One row group of the staged product: the staged sequence on group[0]."""
+    return pr.pairing_product_staged(P.to(group[0]), Q.to(group[0]))
 
 
 def _fused_row_group(group, P: torch.Tensor, Q: torch.Tensor) -> torch.Tensor:
@@ -229,7 +267,8 @@ def sharded_pairing_product(Ps: torch.Tensor, Qs: torch.Tensor, mesh: Optional[D
     No mesh: the staged sequence on Ps' device. With a mesh: each row
     group on its devices, by the fused product when `fused` (the legs
     split over mp; a K that mp does not divide degrades to the staged
-    sequence, `sharding.fallbacks`), else by the staged sequence."""
+    sequence, `sharding.fallbacks`), else by the staged sequence on the
+    group's first device (`pairing.staged.sharded_calls`)."""
     if mesh is None:
         return pr.pairing_product_staged(Ps, Qs)
     mesh = _device_mesh(mesh)
@@ -243,8 +282,78 @@ def sharded_pairing_product(Ps: torch.Tensor, Qs: torch.Tensor, mesh: Optional[D
         mx.logger.warning("sharding: fused pairing product needs K %% mp == 0 (K=%d, mp=%d); "
                           "degrading to the staged sequence", K, mp)
         fused = False
-    if not fused:
-        return run_rows_dp(pr.pairing_product_staged, Ps, Qs, mesh=mesh)
-    with devobs.dispatch("fused_pairing", rows=B * K, padded_rows=((-B) % dp) * K, dp=dp, mp=mp,
+    program, body = ("fused_pairing", _fused_row_group) if fused else \
+        ("pairing_product_staged", _staged_row_group)
+    with devobs.dispatch(program, rows=B * K, padded_rows=((-B) % dp) * K, dp=dp, mp=mp,
                          device=_mesh_devices(mesh)):
-        return _on_row_groups(_fused_row_group, (Ps, Qs), mesh)
+        out = _on_row_groups(body, (Ps, Qs), mesh)
+    if not fused:
+        _count_sharded(mx.counter("pairing.staged.sharded_calls"),
+                       mx.counter("pairing.staged.shards"), dp)
+    return out
+
+
+# ------------------------------------------------------------ mesh binding
+
+def same_device(a, b) -> bool:
+    """Whether two device specs name one device: None is the card, and a
+    CUDA device without an index is the current one."""
+    def norm(d):
+        d = torch.device("cuda" if d is None else d)
+        if d.type == "cuda" and d.index is None:
+            return torch.device("cuda", torch.cuda.current_device()
+                                if torch.cuda.is_available() else 0)
+        return d
+    return norm(a) == norm(b)
+
+
+def mesh_on_device(mesh, device) -> DeviceMesh:
+    """`mesh` checked for binding a plane on `device`: a `MeshConfig`
+    names no device (TypeError), and a mesh whose first device is not
+    `device` raises ValueError."""
+    mesh = _device_mesh(mesh)
+    if not same_device(mesh.devices[0][0], device):
+        raise ValueError(f"the mesh's first device {mesh.devices[0][0]} is not the plane's "
+                         f"device {device}: lay the mesh over it")
+    return mesh
+
+
+class MeshBound:
+    """Mixin of the batched planes: a plane bound to an optional
+    `DeviceMesh` (the counterpart of the reference's
+    `crypto/batch.py:_MeshBound`). Its stage calls and pairing products
+    run over the mesh's row groups (a fused product's legs also over mp,
+    `sharded_pairing_product`); unbound (None) each is one launch over
+    all rows. The plane defines `device` and lists its fixed tensors in
+    `_mesh_tables()`; binding copies each once to every distinct device
+    that runs a row group. Results never depend on the mesh, only the
+    dispatch does."""
+
+    mesh: Optional[DeviceMesh] = None
+    _replicas: Dict[tuple, torch.Tensor] = {}
+
+    def _mesh_tables(self) -> tuple:
+        """The tensors every row group reads (window tables)."""
+        return ()
+
+    def set_mesh(self, mesh: Optional[DeviceMesh]) -> None:
+        """Bind the plane to `mesh` (None unbinds). A `MeshConfig` names no
+        device (TypeError); a mesh whose first device is not the plane's
+        raises ValueError."""
+        replicas = {}
+        if mesh is not None:
+            mesh = mesh_on_device(mesh, self.device)
+            for dev in {str(row[0]): row[0] for row in mesh.devices}.values():
+                for t in self._mesh_tables():
+                    replicas[(id(t), str(dev))] = t if same_device(t.device, dev) else t.to(dev)
+        self.mesh = mesh
+        self._replicas = replicas
+
+    def _run(self, rows_fn, *arrays, consts=()) -> torch.Tensor:
+        """`rows_fn(*consts, *arrays)` over the bound mesh's row groups
+        (`run_rows_dp`, the tables from the binding's copies), or one call
+        when the plane is unbound."""
+        if self.mesh is None:
+            return rows_fn(*consts, *arrays)
+        return run_rows_dp(rows_fn, *arrays, mesh=self.mesh, consts=consts,
+                           placed=self._replicas)

@@ -132,10 +132,12 @@ class Network:
     `device` is where the batched planes run: None is the card
     (`crypto.batch.resolve_device`, raising where there is no CUDA),
     "cpu" the kernels' plain torch versions; a driver with a device of
-    its own must name the same one (ValueError). `mesh` other than None
-    raises NotImplementedError: the port's verifiers take no mesh. On
-    the card a block whose batched plane fails is not committed: its
-    submitters get `DevicePlaneError` (orderer.py)."""
+    its own must name the same one (ValueError). `mesh`, a `DeviceMesh`
+    laid over that device first (`parallel.sharding.make_mesh`), binds
+    the block's batched planes to it (`BlockValidationPipeline`), for
+    both engines; `restore` and `recover` take it too. On the card a
+    block whose batched plane fails is not committed: its submitters get
+    `DevicePlaneError` (orderer.py)."""
 
     def __init__(self, validator: RequestValidator,
                  policy: Optional[BlockPolicy] = None,
@@ -938,11 +940,11 @@ class Network:
     @classmethod
     def restore(cls, validator: RequestValidator, raw: bytes,
                 policy: Optional[BlockPolicy] = None,
-                device=None) -> "Network":
+                device=None, mesh=None) -> "Network":
         from ...crypto.serialization import loads
 
         d = loads(raw)
-        net = cls(validator, policy=policy, device=device)
+        net = cls(validator, policy=policy, mesh=mesh, device=device)
         net._state = dict(d["state"])
         net._spent = set(d["spent"])
         net._blocks = [Block(*row) for row in d["blocks"]]
@@ -955,7 +957,7 @@ class Network:
     def recover(cls, validator: RequestValidator, wal_path: str,
                 policy: Optional[BlockPolicy] = None,
                 snapshot_every: Optional[int] = None,
-                device=None) -> "Network":
+                device=None, mesh=None) -> "Network":
         """Rebuild a crashed node's ledger: latest snapshot (if any) plus
         a replay of the WAL suffix, then keep journaling to the same
         files. Records at heights the snapshot already covers are skipped
@@ -969,9 +971,9 @@ class Network:
         if os.path.exists(snap_path):
             with open(snap_path, "rb") as fh:
                 net = cls.restore(validator, fh.read(), policy=policy,
-                                  device=device)
+                                  device=device, mesh=mesh)
         else:
-            net = cls(validator, policy=policy, device=device)
+            net = cls(validator, policy=policy, mesh=mesh, device=device)
         wal = WriteAheadLog(wal_path)
         replayed = 0
         records = 0

@@ -45,11 +45,10 @@ import time
 from dataclasses import dataclass
 from typing import Callable, Dict, List, Optional, Sequence, Tuple
 
-import torch
-
 from ...api.request import TokenRequest
 from ...api.validator import SIG_AUDITOR, RequestValidator
 from ...crypto.batch import resolve_device
+from ...parallel.sharding import mesh_on_device, same_device
 from ...drivers import identity
 from ...utils import faults, resilience, slo
 from ...utils import metrics as mx
@@ -358,18 +357,6 @@ class Orderer:
         return sub.event
 
 
-def _same_device(a, b) -> bool:
-    """Whether two device specs name one device: None is the card, and
-    a CUDA device without an index is the current one."""
-    def norm(d):
-        d = torch.device("cuda" if d is None else d)
-        if d.type == "cuda" and d.index is None:
-            return torch.device("cuda", torch.cuda.current_device()
-                                if torch.cuda.is_available() else 0)
-        return d
-    return norm(a) == norm(b)
-
-
 class BlockValidationPipeline:
     """The batched proof plane for one block.
 
@@ -398,9 +385,12 @@ class BlockValidationPipeline:
     `device`: None is the card (`crypto.batch.resolve_device`, which
     raises where there is no CUDA); "cpu" runs the kernels' plain torch
     versions. A driver with a device of its own must name the same one
-    (ValueError otherwise). `mesh` is the reference's argument: the
-    port's verifiers take no mesh, so any mesh other than None raises
-    NotImplementedError.
+    (ValueError otherwise). `mesh`, a `DeviceMesh` whose first device is
+    the pipeline's (ValueError otherwise; a `MeshConfig` names no device
+    and raises TypeError), binds both planes: each block's
+    `driver.batch_verifier(mesh=mesh)` and the `BatchedSchnorrVerifier`,
+    whose stage calls then run over the mesh's row groups. The verdicts
+    do not depend on it.
 
     A plane that cannot serve a block (a failed kernel build or
     verifier construction, a launch error, a deadline timeout, an open
@@ -432,16 +422,12 @@ class BlockValidationPipeline:
 
     def __init__(self, validator: RequestValidator, policy: BlockPolicy,
                  mesh=None, device=None):
-        if mesh is not None:
-            raise NotImplementedError(
-                "the port's block validation pipeline takes no mesh: its "
-                "batched verifiers run on one device (mesh=None)"
-            )
         self.validator = validator
         self.policy = policy
         self.device = resolve_device(device)
+        self.mesh = None if mesh is None else mesh_on_device(mesh, self.device)
         driver_device = getattr(validator.driver, "device", self.device)
-        if not _same_device(driver_device, self.device):
+        if not same_device(driver_device, self.device):
             raise ValueError(
                 f"the driver runs its batched planes on {driver_device!r} "
                 f"but the pipeline on {self.device}: pass the same device"
@@ -544,7 +530,7 @@ class BlockValidationPipeline:
             if verifier is None:
                 try:
                     self._load_kernels()
-                    verifier = driver.batch_verifier()
+                    verifier = driver.batch_verifier(mesh=self.mesh)
                 except Exception:
                     # construction failures (a failed kernel build, OOM
                     # building tables) are handled as verify failures
@@ -787,7 +773,8 @@ class BlockValidationPipeline:
                 from ...crypto.batch_sign import BatchedSchnorrVerifier
 
                 self._load_kernels()
-                self._sign_verifier = BatchedSchnorrVerifier(device=self.device)
+                self._sign_verifier = BatchedSchnorrVerifier(device=self.device,
+                                                             mesh=self.mesh)
             except Exception:
                 # one strike, like the latch this breaker replaced: a
                 # construction failure is structural (import/OOM) and

@@ -49,9 +49,10 @@ from ..network.pipeline import BusyClock
 class PipelinedSubmitter:
     """Submit groups of token requests while proving the next group.
 
-    `network` is any object with the `submit_many(List[bytes])` contract
-    (the port's in-process `Network`; the remote client is not ported). `retries`/`backoff_s`
-    govern the worker's Backpressure retry loop.
+    `network` is any object with the `submit_many(List[bytes])` contract:
+    the port's in-process `Network` or its `RemoteNetwork`, whose
+    `submit_many` raises the node's `Backpressure` as the same type.
+    `retries`/`backoff_s` govern the worker's Backpressure retry loop.
     """
 
     def __init__(self, network, retries: int = 8, backoff_s: float = 0.05):

@@ -16,9 +16,11 @@ the reference's names:
   * ``device.<plane>.occupancy``           rows / (rows + padding)
   * ``device.<program>.padded_rows``       cumulative padding
 
-The two time histograms take `TIME_BUCKETS` (10 us to 120 s), not the
-registry's default (from 1 ms), so a kernel's p50 is not an artifact of
-interpolating inside [0, 1 ms].
+The two time histograms take `TIME_BUCKETS`, not the registry's default
+(from 1 ms): bounds in steps of 1.2x from 10 us to 25 ms, a kernel's
+range, so that a bucket's midpoint lies within 10% of any time inside
+it, then coarse steps up to 120 s for the plain versions. A p50 is
+then not an artifact of interpolating inside a wide bucket.
 
 The port launches once over all rows, so its kernel frames carry no
 padding; the mesh plane's carry the dp padding of `shard_rows`.
@@ -34,8 +36,14 @@ grows past `RESOLVE_AT`; only then are their times observed into the
 histograms and `wall_s`. A pair still running at a read is resolved at
 a later read, never dropped. A mesh frame takes the longest of its devices' pairs. A
 pair measures its stream between its two events: work another thread
-queued on the same stream in between is inside it. On the CPU a frame
-times its body (the plain version) by the host clock.
+queued on the same stream in between is inside it. So a frame whose pair
+was open on a stream while another thread's pair was open there counts
+as overlapped (`overlapped` in its program's `snapshot()` entry,
+`dispatch_overlapped` beside the p50 in `section()`, the counter
+`device.dispatch.overlapped`): its time may hold
+the other thread's kernels. A frame nested in another on the same thread
+(a mesh frame around its kernels' frames) is not an overlap. On the CPU
+a frame times its body (the plain version) by the host clock.
 
 Builds and loads. `ops/_build.build_all` reports each `nvcc` build
 (`note_compile(seconds)` and a cache miss) and each load of an existing
@@ -58,6 +66,7 @@ or off it only observes: no result depends on it.
 from __future__ import annotations
 
 import contextlib
+import itertools
 import threading
 import time
 from typing import Dict, List, Optional, Tuple
@@ -92,10 +101,11 @@ RESOLVE_AT = 64
 # it into two bins
 _OCC_BUCKETS = tuple(i / 10.0 for i in range(1, 11))
 # dispatch times run from microseconds (a small kernel on the card) to
-# seconds (a plain version on the CPU); the registry's default buckets
-# start at 1 ms, so a kernel's p50 would be an interpolation inside [0, 1 ms]
-TIME_BUCKETS = (1e-5, 2.5e-5, 5e-5, 1e-4, 2.5e-4, 5e-4, 1e-3, 2.5e-3, 5e-3, 0.01, 0.025,
-                0.05, 0.1, 0.25, 0.5, 1.0, 2.5, 5.0, 10.0, 30.0, 60.0, 120.0)
+# seconds (a plain version on the CPU): steps of 1.2x from 10 us to 25 ms,
+# where a bucket's midpoint is within 10% of any time inside it, then the
+# coarse steps of the plain versions
+TIME_BUCKETS = tuple(float(f"{1e-5 * 1.2 ** k:.4g}") for k in range(43)) + (
+    0.025, 0.05, 0.1, 0.25, 0.5, 1.0, 2.5, 5.0, 10.0, 30.0, 60.0, 120.0)
 
 _enabled = True
 _tl = threading.local()
@@ -109,6 +119,9 @@ _last_frame: Optional[Tuple[str, str]] = None
 _pending: List[tuple] = []
 # free timing events, by the device they were first recorded on
 _free_events: Dict[str, list] = {}
+# event pairs open on each stream: key -> {token: (thread ident, [overlapped])}
+_open: Dict[str, Dict[int, tuple]] = {}
+_tokens = itertools.count()
 
 
 def enable(flag: bool = True) -> None:
@@ -135,6 +148,7 @@ def _entry(frame: Tuple[str, str]) -> dict:
             "compile_s": 0.0,
             "cache_hits": 0,
             "cache_misses": 0,
+            "overlapped": 0,
             "degrades": {},
         }
     return e
@@ -198,6 +212,29 @@ def _streams(device) -> list:
     return out
 
 
+def _open_pairs(keys) -> tuple:
+    """Register a frame's event pairs as open on the streams `keys`. A pair
+    that another thread holds open on one of them overlaps this one, and
+    both are marked. Returns (token, mark) for `_close_pairs`."""
+    me = threading.get_ident()
+    token, mark = next(_tokens), [False]
+    with _lock:
+        for key in keys:
+            frames = _open.setdefault(key, {})
+            for ident, other in frames.values():
+                if ident != me:
+                    other[0] = mark[0] = True
+            frames[token] = (me, mark)
+    return token, mark
+
+
+def _close_pairs(token: int, keys) -> None:
+    """The frame's pairs are closed: no later pair can overlap them."""
+    with _lock:
+        for key in keys:
+            _open.get(key, {}).pop(token, None)
+
+
 def _event(key: str):
     with _lock:
         free = _free_events.get(key)
@@ -242,10 +279,13 @@ def dispatch(
         ev = _event(key)
         ev.record(s)
         starts.append((key, s, ev))
+    keys = [key for key, _s, _ev in starts]
+    token, overlap = _open_pairs(keys) if keys else (None, [False])
     t0 = time.perf_counter()
     try:
         yield
     except BaseException:
+        _close_pairs(token, keys)
         for key, _s, ev in starts:
             _release(key, ev)
         raise
@@ -257,9 +297,13 @@ def dispatch(
         end = _event(key)
         end.record(s)
         pairs.append((key, start, end))
+    _close_pairs(token, keys)
+    if overlap[0]:
+        mx.counter("device.dispatch.overlapped").inc()
     with _lock:
         e = _entry(frame)
         e["dispatches"] += 1
+        e["overlapped"] += int(overlap[0])
         e["rows"] += rows
         e["padded_rows"] += padded_rows
         e["dp"] = dp
@@ -381,6 +425,7 @@ def reset() -> None:
     with _lock:
         _programs.clear()
         _pending.clear()
+        _open.clear()
     _last_frame = None
 
 
@@ -445,6 +490,8 @@ def section() -> dict:
     agg = _time_hist("device.dispatch.seconds")
     p50 = agg.quantile(0.5)
     p99 = agg.quantile(0.99)
+    with _lock:
+        overlapped = sum(e["overlapped"] for e in _programs.values())
     return {
         "dispatches": sum(e["dispatches"] for e in progs),
         "rows": rows,
@@ -453,6 +500,8 @@ def section() -> dict:
         "waste_frac": _waste(rows, padded),
         "dispatch_p50_s": round(p50, 6) if p50 is not None else None,
         "dispatch_p99_s": round(p99, 6) if p99 is not None else None,
+        # frames whose event pair shared its stream with another thread's
+        "dispatch_overlapped": overlapped,
         "compiles": sum(e["compiles"] for e in progs),
         "compile_s": round(sum(e["compile_s"] for e in progs), 3),
         "cache_hits": sum(e["cache_hits"] for e in progs),

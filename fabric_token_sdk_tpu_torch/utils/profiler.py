@@ -1,4 +1,4 @@
-"""Host-path profiler: sub-leg timers.
+"""Host-path profiler: sub-leg timers and a sampling wall-clock profiler.
 
 The host work of validating a request, around the batched proof planes
 on the card, is per-tx Python. `leg(name)` is its attribution layer: an
@@ -29,16 +29,36 @@ explain.
 
 Thread roles (`set_thread_role`, read by `thread_role`): the block
 pipeline registers its commit worker and its host-batch pool threads as
-`commit-worker` (`services/network/pipeline.py`).
+`commit-worker` (`services/network/pipeline.py`), the remote node its
+connection handlers as `remote-handler`.
 
-Not ported yet: the reference's sampling wall-clock profiler, which
-reads the roles, and its `FTS_PROF_HZ`/`FTS_PROF_MAX_STACKS` settings.
-They come with their first caller in the port (a bench).
+**Sampling profiler** (`SamplingProfiler`, and the process-wide one of
+`start`/`stop`/`active`): a daemon thread walking `sys._current_frames()`
+at `hz` samples a second (0, the default, is off: no thread at all),
+aggregating collapsed stacks per thread role:
+
+    commit-worker   the pipelined engine's stage-B thread and host pool
+    stage-a-driver  whoever drives the cut and the device verify
+    remote-handler  per-connection server threads (remote.py)
+    client          bench submitter threads
+    other           everything else (main thread included)
+
+A role resolves from a registration (`set_thread_role`), then the thread
+name, then a stack heuristic. The table holds at most `max_stacks`
+distinct stacks; a new stack beyond that is dropped and counted
+(`prof.dropped`). `collapsed()` gives flamegraph-ready
+`role;frame;frame -> count`. The observer's own metrics: `prof.samples`
+counts passes, `prof.stacks` gauges the table, `prof.errors` counts
+failed passes. The reference's `FTS_PROF_HZ` and `FTS_PROF_MAX_STACKS`
+are the arguments `hz=` and `max_stacks=` here, with its defaults (0 and
+2000); no environment variable is read. Nothing on a path starts it.
 """
 
 from __future__ import annotations
 
 import contextlib
+import os
+import sys
 import threading
 import time
 from typing import Dict, Optional
@@ -132,3 +152,170 @@ def thread_role(ident: Optional[int] = None) -> Optional[str]:
     thread), or None."""
     with _roles_lock:
         return _roles.get(threading.get_ident() if ident is None else ident)
+
+
+# thread-name prefixes -> role (the commit worker and bench clients are
+# named at spawn; registration beats this map when both apply)
+_NAME_ROLES = (
+    ("fts-block-commit", "commit-worker"),
+    ("fts-commit-host", "commit-worker"),
+    ("fts-soak-client", "client"),
+)
+
+# sampler-internal threads that must never appear in their own profile
+_SKIP_NAMES = ("fts-prof", "fts-heartbeat")
+
+
+def _classify(ident: int, name: str, frames) -> str:
+    """The role of a sampled thread: its registration, its name, else the
+    files and functions on its stack (`frames`, root first)."""
+    role = thread_role(ident)
+    if role:
+        return role
+    for prefix, r in _NAME_ROLES:
+        if name.startswith(prefix):
+            return r
+    for filename, func in frames:
+        if filename.endswith("remote.py"):
+            return "remote-handler"
+        if filename.endswith("pipeline.py") and func == "submit":
+            return "stage-a-driver"
+        if filename.endswith("orderer.py") and func in ("drive", "flush"):
+            return "stage-a-driver"
+    return "other"
+
+
+# ------------------------------------------------------------ sampler
+
+DEFAULT_HZ = 0.0
+DEFAULT_MAX_STACKS = 2000
+
+
+class SamplingProfiler:
+    """Wall-clock sampling profiler over `sys._current_frames()`.
+
+    `hz` <= 0 is off: `start()` spawns nothing. The stack table is
+    bounded at `max_stacks` distinct collapsed stacks; past the cap a new
+    stack is dropped (counted), a known one keeps counting."""
+
+    def __init__(self, hz: float = DEFAULT_HZ, max_stacks: int = DEFAULT_MAX_STACKS,
+                 max_depth: int = 48):
+        self.hz = float(hz)
+        self.max_stacks = max(1, int(max_stacks))
+        self.max_depth = max(1, max_depth)
+        self.samples = 0
+        self.dropped = 0
+        self._stacks: Dict[str, int] = {}
+        self._lock = threading.Lock()
+        self._stop = threading.Event()
+        self._thread: Optional[threading.Thread] = None
+
+    def start(self) -> "SamplingProfiler":
+        if self.hz <= 0 or self._thread is not None:
+            return self
+        self._stop.clear()
+        self._thread = threading.Thread(target=self._run, name="fts-prof", daemon=True)
+        self._thread.start()
+        return self
+
+    def stop(self) -> "SamplingProfiler":
+        self._stop.set()
+        t = self._thread
+        if t is not None:
+            t.join(timeout=5)
+            self._thread = None
+        return self
+
+    def running(self) -> bool:
+        return self._thread is not None and self._thread.is_alive()
+
+    def _run(self) -> None:
+        interval = 1.0 / self.hz
+        while not self._stop.wait(interval):
+            try:
+                self.sample()
+            except Exception:
+                # the observer must never take the process down
+                mx.counter("prof.errors").inc()
+
+    def sample(self) -> None:
+        """One sampling pass over every live thread but the sampler's own
+        (public, so a caller can drive it without the daemon thread)."""
+        me = threading.get_ident()
+        names = {t.ident: t.name or "" for t in threading.enumerate()}
+        for ident, top in sys._current_frames().items():
+            if ident == me:
+                continue
+            name = names.get(ident, "")
+            if name.startswith(_SKIP_NAMES):
+                continue
+            frames = []
+            f = top
+            while f is not None and len(frames) < self.max_depth:
+                code = f.f_code
+                frames.append((code.co_filename, code.co_name))
+                f = f.f_back
+            frames.reverse()  # root first, flamegraph order
+            role = _classify(ident, name, frames)
+            key = role + ";" + ";".join(
+                "%s:%s" % (os.path.basename(fn).rsplit(".", 1)[0], func) for fn, func in frames)
+            with self._lock:
+                if key in self._stacks:
+                    self._stacks[key] += 1
+                elif len(self._stacks) < self.max_stacks:
+                    self._stacks[key] = 1
+                else:
+                    self.dropped += 1
+                    mx.counter("prof.dropped").inc()
+        self.samples += 1
+        mx.counter("prof.samples").inc()
+        mx.gauge("prof.stacks").set(len(self._stacks))
+
+    def collapsed(self, role: Optional[str] = None) -> Dict[str, int]:
+        """{collapsed stack: sample count}, keys `role;frame;frame` root
+        first; `role` keeps one thread role."""
+        with self._lock:
+            items = dict(self._stacks)
+        if role is not None:
+            prefix = role + ";"
+            items = {k: v for k, v in items.items() if k.startswith(prefix)}
+        return items
+
+    def stack_count(self) -> int:
+        with self._lock:
+            return len(self._stacks)
+
+
+# the process-wide sampler, started around a measured window
+_active: Optional[SamplingProfiler] = None
+_active_lock = threading.Lock()
+
+
+def start(hz: float = DEFAULT_HZ, max_stacks: int = DEFAULT_MAX_STACKS) -> Optional[SamplingProfiler]:
+    """Start the process-wide sampler (idempotent: a running one is
+    returned as it is). None when `hz` <= 0: off means no thread."""
+    global _active
+    with _active_lock:
+        if _active is not None and _active.running():
+            return _active
+        p = SamplingProfiler(hz=hz, max_stacks=max_stacks)
+        if p.hz <= 0:
+            return None
+        _active = p.start()
+        return _active
+
+
+def stop() -> Optional[SamplingProfiler]:
+    """Stop the process-wide sampler; returns it, with its samples, or
+    None if none was started."""
+    global _active
+    with _active_lock:
+        p = _active
+        _active = None
+    if p is not None:
+        p.stop()
+    return p
+
+
+def active() -> Optional[SamplingProfiler]:
+    return _active

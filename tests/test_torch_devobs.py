@@ -537,3 +537,76 @@ def test_dispatches_equal_kernel_launches(monkeypatch):
     assert {k: v for k, v in launched.items() if v} == dispatched
     assert set(dispatched) == {k.name for k in _build.ALL_KERNELS}
     assert dispatched["g1_addsub"] == 2 and dispatched["gt_product"] == 2  # two programs each
+
+
+# ------------------------------------------------------------ the time buckets and overlaps
+
+
+@pytest.mark.parametrize("at_s, slow_s", [(5.64e-3, 7.91e-3), (13e-6, 26e-6)])
+def test_time_buckets_resolve_a_kernel_p50_within_ten_percent(at_s, slow_s):
+    """C2: a program's dispatches mostly at one time (`final_exp` at the
+    block's rows, 5.64 ms; `g1_addsub`, 13 us) with some slower ones (the
+    batch's rows): the p50 of `TIME_BUCKETS` reads within 10% of the
+    common time, where a bucket from 5 to 10 ms (or 10 to 25 us) read its
+    midpoint. The bounds step by 1.2x from 10 us to 25 ms."""
+    h = mx.histogram(f"test.devobs.buckets.{at_s}", buckets=devobs.TIME_BUCKETS)
+    for _ in range(15):
+        h.observe(at_s)
+    for _ in range(5):
+        h.observe(slow_s)
+    assert abs(h.quantile(0.5) - at_s) <= 0.1 * at_s
+    fine = [b for b in devobs.TIME_BUCKETS if b <= 0.025]
+    assert fine[0] == 1e-5 and fine[-1] == 0.025
+    assert all(1.15 <= b / a <= 1.25 for a, b in zip(fine, fine[1:]))
+    assert devobs.TIME_BUCKETS[-1] == 120.0
+
+
+def test_overlapping_pairs_on_one_stream_are_counted(monkeypatch):
+    """C3: a frame whose event pair was open on a stream while another
+    thread's pair was open there counts as overlapped, both frames; a
+    frame nested in another on the same thread, or on another stream,
+    does not. The count stands in `section()` beside the p50 and in
+    `device.dispatch.overlapped`."""
+    clock = {"done": 10 ** 6, "ms_per_step": 1.0}
+    streams = {"cuda:0": _FakeStream(), "cuda:1": _FakeStream()}
+    monkeypatch.setattr(devobs, "_streams", lambda device: [(device, streams[device])])
+    monkeypatch.setattr(devobs, "_event", lambda key: _FakeEvent(clock))
+    devobs.reset()
+    before = mx.REGISTRY.counter("device.dispatch.overlapped").value
+    # nested on one thread (a mesh frame around its kernel's): no overlap
+    with devobs.dispatch("outer", rows=1, device="cuda:0"):
+        with devobs.dispatch("inner", rows=1, device="cuda:0"):
+            pass
+    # another thread's frame opens while A's is open on cuda:0; a third
+    # thread's frame on cuda:1 meanwhile overlaps nothing
+    opened, release = threading.Event(), threading.Event()
+
+    def holder():
+        with devobs.plane("sign"), devobs.dispatch("g1_msm", rows=2, device="cuda:0"):
+            opened.set()
+            release.wait(timeout=10)
+
+    t = threading.Thread(target=holder)
+    t.start()
+    assert opened.wait(timeout=10)
+    def alone():
+        with devobs.dispatch("alone", rows=1, device="cuda:1"):
+            pass
+
+    with devobs.plane("verify"), devobs.dispatch("miller", rows=4, device="cuda:0"):
+        other = threading.Thread(target=alone)
+        other.start()
+        other.join()
+    release.set()
+    t.join()
+    with devobs.dispatch("after", rows=1, device="cuda:0"):  # both closed: no overlap
+        pass
+    snap = devobs.snapshot()
+    assert snap[("sign", "g1_msm")]["overlapped"] == 1
+    assert snap[("verify", "miller")]["overlapped"] == 1
+    assert all(snap[("stages", p)]["overlapped"] == 0
+               for p in ("outer", "inner", "after", "alone"))
+    sec = devobs.section()
+    assert sec["dispatch_overlapped"] == 2 and "dispatch_p50_s" in sec
+    assert mx.REGISTRY.counter("device.dispatch.overlapped").value - before == 2
+    devobs.reset()

@@ -7,8 +7,9 @@ packages, each package's `RequestValidator` accepting the other's and
 rejecting the same planted faults; and the zkatdlog driver's batched
 planes on `device="cpu"` (the plain torch versions of the kernels):
 `transfer_many` byte-identical to the JAX driver's, `transfer_batch_plan`
-plus `batch_verifier().verify` verdicts equal to host validation, no
-mesh, and the card as the default device. Public parameters are
+plus `batch_verifier().verify` verdicts equal to host validation, and
+the card as the default device (the mesh binding of `batch_verifier` and
+`batch_prover` is `tests/test_torch_mesh_planes.py`'s). Public parameters are
 `setup(base=4, exponent=2)` from one seed in each package."""
 
 import functools
@@ -413,15 +414,6 @@ def test_batched_planes_2in2out(zk_pp):
     v = ManagementService(driver).validator()
     for r, ok in zip(reqs, verdicts):
         assert _host(v, r, resolve, {0: ok}) == _host(v, r, resolve)
-
-
-def test_no_mesh(zk_pp):
-    driver = ZKATDLogDriver(zk_pp, device="cpu")
-    with pytest.raises(NotImplementedError, match="no mesh"):
-        driver.batch_verifier(mesh=object())
-    with pytest.raises(NotImplementedError, match="no mesh"):
-        driver.batch_prover(mesh=(2, 2))
-    assert FabTokenDriver().batch_verifier(mesh=object()) is None
 
 
 class _Boom:

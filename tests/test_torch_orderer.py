@@ -10,9 +10,9 @@ crash isolation, block-cut policy and snapshot/restore. Every case
 submits the same request bytes (built by both packages from one seed) to
 the JAX `Network` and the port's, and compares statuses and messages,
 heights, block tx lists, state and spent sets exactly
-(`torch_network_cases`). The reference's mesh-sharded block test
-becomes the port's no-mesh rule; the device and sign-plane rules of the
-port's `Network` are pinned here too."""
+(`torch_network_cases`). The reference's mesh-sharded block test runs
+on a logical mesh of CPU devices; the mesh, device and sign-plane rules
+of the port's `Network` are pinned here too."""
 
 import threading
 
@@ -21,7 +21,7 @@ import torch
 
 from torch_network_cases import (
     PORT, REF, assert_same_ledger, build_both, counter, events, host_sign_plane, module,
-    networks, policy, setup_both, submit_both, submit_many_both,
+    network, networks, policy, setup_both, submit_both, submit_many_both,
 )
 
 torch.set_num_threads(1)
@@ -228,21 +228,75 @@ def test_zk_batched_group_rejects_tampered_proof(zk_pps):
     assert not nets[PORT.root].exists(ID("tamper-seed", 0))
 
 
-def test_mesh_raises_not_implemented(zk_pps):
-    """Stands in for the reference's `test_zk_block_through_sharded_pipeline`:
-    the port's verifiers take no mesh, so `Network(mesh=...)` and the
-    pipeline raise NotImplementedError rather than run unsharded."""
-    from fabric_token_sdk_tpu_torch.parallel.sharding import make_mesh
+@pytest.mark.parametrize("pipelined", [True, False])
+def test_zk_block_through_sharded_pipeline(zk_pps, pipelined):
+    """The reference's `test_zk_block_through_sharded_pipeline`: one
+    zkatdlog block (four 1-in/1-out transfers and an intra-block double
+    spend) through the port's `Network(mesh=...)` on the logical (2, 2)
+    mesh of CPU devices, with the pipelined engine and without. Statuses,
+    messages, blocks, state and spent set equal the JAX ledger's; the
+    block's one batched verify ran bound to the mesh (in the engine's
+    stage A too) over its 2 row groups; a restored or recovered ledger
+    takes the mesh as well."""
+    from fabric_token_sdk_tpu_torch.crypto.batch import BatchedTransferVerifier
+    from torch_mesh_cases import cpu_mesh
+
+    n = 4
+    envs, raws = build_both("zkatdlog", lambda e: _pay(e, n) + [
+        e.transfer("pay-again", [("seed", 1)], [5])], zk_pps)
+    mesh = cpu_mesh("(2, 2)")
+    nets = {P.root: network(P, envs[P.root], pipeline=pipelined,
+                            policy=policy(P, max_block_txs=8, min_batch=2),
+                            **({"mesh": mesh} if P is PORT else {}))
+            for P in (REF, PORT)}
+    port = nets[PORT.root]
+    assert port._pipeline.mesh is mesh and (port._engine is not None) == pipelined
+    submit_both(nets, raws[0])
+    bound = []
+    real = BatchedTransferVerifier.verify
+
+    def spy(self, txs):
+        bound.append((self.mesh, threading.current_thread().name))
+        return real(self, txs)
+
+    sharded = counter(PORT, "stages.sharded_calls")
+    BatchedTransferVerifier.verify = spy
+    try:
+        got = submit_many_both(nets, raws[1:])
+    finally:
+        BatchedTransferVerifier.verify = real
+    assert [s for _, s, _ in got] == [VALID] * n + [INVALID]
+    assert "already spent" in got[-1][2]
+    view = assert_same_ledger(nets)
+    assert view["height"] == 2
+    assert [m for m, _ in bound] == [mesh]  # one bound verify of the block
+    assert counter(PORT, "stages.sharded_calls") - sharded == 3  # g1_msm, g1_mul, g1_sub
+    N = PORT.services_network
+    validator = envs[PORT.root].validator()
+    restored = N.Network.restore(validator, port.snapshot(), policy=policy(PORT), device="cpu",
+                                 mesh=mesh)
+    assert restored._pipeline.mesh is mesh
+    assert restored.snapshot() == port.snapshot()
+
+
+def test_mesh_rules_of_the_block_path(zk_pps, tmp_path):
+    """A `MeshConfig` names no device (TypeError); a mesh whose first
+    device is not the pipeline's raises ValueError, for `Network`, the
+    pipeline and `Network.recover` alike (the block path's device rule)."""
+    from fabric_token_sdk_tpu_torch.parallel import MeshConfig, make_mesh
     from fabric_token_sdk_tpu_torch.services.network.orderer import BlockValidationPipeline
 
     envs, _ = build_both("zkatdlog", lambda e: [], zk_pps)
     env = envs[PORT.root]
-    mesh = make_mesh(4, mp=2, devices=[torch.device("cpu")] * 4)
     N = PORT.services_network
-    with pytest.raises(NotImplementedError, match="mesh"):
-        N.Network(env.validator(), policy=policy(PORT, max_block_txs=8), mesh=mesh, device="cpu")
-    with pytest.raises(NotImplementedError, match="mesh"):
-        BlockValidationPipeline(env.validator(), policy(PORT), mesh=mesh, device="cpu")
+    meta = make_mesh(2, devices=[torch.device("meta")] * 2)
+    for mesh, err in ((MeshConfig.build(4, mp=2), TypeError), (meta, ValueError)):
+        with pytest.raises(err):
+            N.Network(env.validator(), policy=policy(PORT), mesh=mesh, device="cpu")
+        with pytest.raises(err):
+            BlockValidationPipeline(env.validator(), policy(PORT), mesh=mesh, device="cpu")
+        with pytest.raises(err):
+            N.Network.recover(env.validator(), str(tmp_path / "w.wal"), mesh=mesh, device="cpu")
 
 
 # ------------------------------------------------------------------ the port's device rules

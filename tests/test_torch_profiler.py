@@ -2,9 +2,13 @@
 the sub-leg unit tests of `tests/test_profiler.py` (zero cost outside a
 window, exclusive sub-leg timing, windows and totals), the legs' cover
 of a validation run through `RequestValidator`, the metrics core's
-histogram, and `BytesCache` hits, misses and disabled capacity."""
+histogram, and `BytesCache` hits, misses and disabled capacity; and the
+sampling profiler's cases (off means no thread, the lifecycle, a bounded
+table, roles, verdicts unchanged under sampling), with `hz`/`max_stacks`
+as arguments where the reference reads `FTS_PROF_HZ`/`FTS_PROF_MAX_STACKS`."""
 
 import random
+import threading
 import time
 
 import pytest
@@ -17,6 +21,12 @@ from fabric_token_sdk_tpu_torch.drivers.fabtoken import FabTokenDriver, FabToken
 from fabric_token_sdk_tpu_torch.models.token import ID
 from fabric_token_sdk_tpu_torch.utils import metrics as mx
 from fabric_token_sdk_tpu_torch.utils import profiler
+
+
+@pytest.fixture(autouse=True)
+def _sampler_off():
+    yield
+    profiler.stop()
 
 
 def test_leg_is_passthrough_without_collector():
@@ -149,3 +159,145 @@ def test_bytes_cache_hits_misses_and_disabled(monkeypatch):
     raw = ser.dumps({"k": 1})
     assert ser.loads_cached(raw) is ser.loads_cached(raw)
     ser.parse_caches_clear()
+
+
+# ------------------------------------------------------------ the sampling profiler
+
+
+def test_off_means_zero_profiler_threads(monkeypatch):
+    """Off by default and at hz 0: no sampler thread. The reference's
+    `FTS_PROF_HZ` is not read: set, it starts nothing."""
+    assert profiler.start() is None
+    assert profiler.active() is None
+    assert profiler.start(hz=0) is None
+    monkeypatch.setenv("FTS_PROF_HZ", "200")
+    monkeypatch.setenv("FTS_PROF_MAX_STACKS", "1")
+    assert profiler.start() is None
+    assert profiler.SamplingProfiler().max_stacks == profiler.DEFAULT_MAX_STACKS == 2000
+    assert not any(t.name.startswith("fts-prof") for t in threading.enumerate())
+
+
+def test_start_stop_lifecycle():
+    p = profiler.start(hz=200.0)
+    assert p is not None and p.running()
+    assert any(t.name == "fts-prof" for t in threading.enumerate())
+    assert profiler.start(hz=200.0) is p  # idempotent: the live sampler
+    stopped = profiler.stop()
+    assert stopped is p and not p.running()
+    assert profiler.active() is None
+    assert profiler.stop() is None
+
+
+def _parked_thread(name, release, role=None, depth=0):
+    """A thread parked `depth` recursion frames deep: distinct depths give
+    distinct collapsed stacks."""
+    ready = threading.Event()
+
+    def park(d):
+        if d > 0:
+            return park(d - 1)
+        if role:
+            profiler.set_thread_role(role)
+        ready.set()
+        release.wait(timeout=30)
+
+    t = threading.Thread(target=park, args=(depth,), name=name, daemon=True)
+    t.start()
+    ready.wait(timeout=10)
+    return t
+
+
+def test_sampler_table_is_bounded_and_drops_are_counted():
+    release = threading.Event()
+    threads = [_parked_thread(f"park-{i}", release, depth=i) for i in range(3)]
+    try:
+        dropped0 = mx.REGISTRY.counter("prof.dropped").value
+        p = profiler.SamplingProfiler(hz=0, max_stacks=1)
+        p.sample()
+        assert p.stack_count() == 1
+        assert p.dropped >= 1 and mx.REGISTRY.counter("prof.dropped").value - dropped0 >= 1
+        assert p.samples == 1
+        p.sample()  # a known stack keeps counting at the cap
+        assert p.stack_count() == 1
+        assert sum(p.collapsed().values()) >= 2
+    finally:
+        release.set()
+        for t in threads:
+            t.join(timeout=10)
+
+
+def test_roles_registration_and_name_classification():
+    release = threading.Event()
+    threads = [_parked_thread("worker-x", release, role="client"),
+               _parked_thread("fts-block-commit", release),
+               _parked_thread("fts-commit-host_0", release)]
+    try:
+        p = profiler.SamplingProfiler(hz=0, max_stacks=100)
+        p.sample()
+        assert p.collapsed(role="client"), p.collapsed()
+        # both named threads (other tests' engine threads may be alive too)
+        parked = {k: v for k, v in p.collapsed(role="commit-worker").items()
+                  if "test_torch_profiler:park" in k}
+        assert sum(parked.values()) == 2, p.collapsed()
+        for key in p.collapsed(role="client"):  # flamegraph-shaped
+            assert key.startswith("client;")
+            assert ":" in key.split(";", 1)[1]
+        # the stack heuristic, where neither registration nor name applies
+        assert profiler._classify(-1, "t", [("/x/remote.py", "handle")]) == "remote-handler"
+        assert profiler._classify(-1, "t", [("/x/orderer.py", "flush")]) == "stage-a-driver"
+        assert profiler._classify(-1, "t", [("/x/pipeline.py", "submit")]) == "stage-a-driver"
+        assert profiler._classify(-1, "t", [("/x/other.py", "run")]) == "other"
+    finally:
+        release.set()
+        for t in threads:
+            t.join(timeout=10)
+
+
+def _run_scenario():
+    """A fabtoken issue, then two transfers of which the second
+    double-spends, on a `Network` on the CPU: the statuses and the last
+    block's breakdown."""
+    from fabric_token_sdk_tpu_torch.api.validator import RequestValidator
+    from fabric_token_sdk_tpu_torch.services.network import BlockPolicy, Network
+    from fabric_token_sdk_tpu_torch.services.ttx import Party, Transaction
+
+    pp = FabTokenPublicParams()
+    network = Network(RequestValidator(FabTokenDriver(pp)), policy=BlockPolicy(max_block_txs=8),
+                      device="cpu")
+    parties = {name: Party(name, FabTokenDriver(pp), network)
+               for name in ("issuer-node", "alice-node", "bob-node")}
+    parties["issuer-node"].new_issuer_wallet("issuer")
+    alice = parties["alice-node"].new_owner_wallet("alice", anonymous=False)
+    bob = parties["bob-node"].new_owner_wallet("bob", anonymous=False)
+    tx = Transaction(parties["issuer-node"], "seed")
+    tx.issue("issuer", "USD", [5], [alice.recipient_identity()], anonymous=False)
+    tx.collect_endorsements(None)
+    tx.submit()
+    alice_p = parties["alice-node"]
+    tid = alice_p.vault.token_ids()[0]
+
+    def spend(anchor):
+        req = alice_p.tms.new_request(anchor)
+        tokens, metas = alice_p.vault.get_many([tid])
+        alice_p.tms.add_transfer(req, [tid], tokens, metas, "USD", [5],
+                                 [bob.recipient_identity()])
+        alice_p.tms.sign_transfers(req)
+        return req.to_bytes()
+
+    events = network.submit_many([spend("pay-ok"), spend("pay-dup")])
+    return [e.status.value for e in events], network.health()["last_block"]["breakdown"]
+
+
+def test_sampler_never_perturbs_verdicts():
+    base_statuses, base_bd = _run_scenario()
+    assert base_statuses == ["Valid", "Invalid"]
+    p = profiler.start(hz=500.0)
+    assert p is not None
+    try:
+        prof_statuses, prof_bd = _run_scenario()
+    finally:
+        profiler.stop()
+    assert prof_statuses == base_statuses
+    assert p.samples > 0
+    for leg_name in profiler.LEGS:  # the same legs, by key
+        assert (f"host_{leg_name}_s" in base_bd) == (f"host_{leg_name}_s" in prof_bd)

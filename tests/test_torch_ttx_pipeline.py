@@ -202,3 +202,59 @@ def test_device_plane_error_stops_the_pipeline(zk_pp, monkeypatch):
     assert net.height() == 1 and net.status("g0-0") is None and net.status("g1-0") is None
     assert env["parties"]["alice-node"].balance("USD") == 20
     assert built in ([0], [0, 1])  # group 1 may be built while group 0 is in flight
+
+
+def test_pipelined_submit_over_the_wire_retries_backpressure_exactly_once():
+    """`pipelined_submit` over a port `RemoteNetwork` to a
+    `LedgerServer(network=...)` on the CPU: three groups of two issues,
+    the second refused once with `Backpressure` by the node (before
+    ordering, over the wire as `error_class` "Backpressure") and retried
+    by the submit worker. The events, height, statuses and alice's
+    balance equal the same builders run against the in-process
+    `Network`, and the refused group commits exactly once: one block a
+    group, each tx id once in the ledger."""
+    remote = mod(PORT, "services.network.remote")
+    got = {}
+    for where in ("in-process", "wire"):
+        env = build_env(PORT, "fabtoken", policy={"max_block_txs": 8})
+        builders = [issue_builder(env, i) for i in range(3)]
+        net = env["network"]
+        if where == "in-process":
+            results = mod(PORT, "services.ttx").pipelined_submit(net, builders, backoff_s=0.01)
+        else:
+            # the node enqueues a wire batch request by request: refusing
+            # the second group's first request refuses the whole group
+            # before any of it is ordered, as a full ordering queue does
+            calls = {"n": 0}
+            real = net.submit_request_cooperative
+
+            def refuse_second_group_once(request, real=real, calls=calls):
+                calls["n"] += 1
+                if calls["n"] == 3:
+                    raise mod(PORT, "services.network").Backpressure("synthetic queue-full")
+                return real(request)
+
+            net.submit_request_cooperative = refuse_second_group_once
+            server = remote.LedgerServer(network=net).start()
+            client = remote.RemoteNetwork(server.address)
+            bp0 = ctr(PORT, "ttx.pipeline.backpressure")
+            wire0 = ctr(PORT, "remote.dispatch.backpressure")
+            try:
+                results = mod(PORT, "services.ttx").pipelined_submit(client, builders,
+                                                                      backoff_s=0.01)
+            finally:
+                client.close()
+                server.stop()
+            assert ctr(PORT, "ttx.pipeline.backpressure") - bp0 == 1
+            assert ctr(PORT, "remote.dispatch.backpressure") - wire0 == 1
+            assert calls["n"] == 7  # three groups of two, the second's first refused once
+        ids = [f"ps-{i}-{j}" for i in range(3) for j in range(2)]
+        blocks = mod(PORT, "crypto.serialization").loads(net.snapshot())["blocks"]
+        got[where] = ([[event_of(e) for e in events] for events in results], net.height(),
+                      [event_of(net.status(t)) for t in ids], [b[1] for b in blocks],
+                      env["parties"]["alice-node"].balance("USD"))
+    assert got["wire"] == got["in-process"]
+    events, height, status, block_txs, balance = got["wire"]
+    assert all(e[1] == "Valid" for g in events for e in g)
+    assert height == 3 and balance == 2 * (1 + 2 + 3)
+    assert block_txs == [[f"ps-{i}-{j}" for j in range(2)] for i in range(3)]

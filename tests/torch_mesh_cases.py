@@ -51,3 +51,34 @@ def host_gt(rows_P, rows_Q):
 def ones(B, bad=BAD):
     """The expected GT-is-one verdicts of `ps_rows(..., B, ...)`."""
     return [i not in bad for i in range(B)]
+
+
+# ------------------------------------------------------------ bound planes
+
+# The logical meshes the bound planes are held on: every cell the CPU.
+MESH_SHAPES = {"(2, 1)": (2, 1), "(2, 2)": (4, 2)}
+SHARD_COUNTERS = ("stages.sharded_calls", "stages.shards", "pairing.staged.sharded_calls",
+                  "pairing.staged.shards")
+
+
+def cpu_mesh(name):
+    """The logical mesh `name` ("(2, 1)" or "(2, 2)") over the CPU."""
+    from fabric_token_sdk_tpu_torch.parallel import make_mesh
+
+    n, mp = MESH_SHAPES[name]
+    return make_mesh(n, mp=mp, devices=[torch.device("cpu")] * n)
+
+
+class ShardCounts:
+    """The deltas of the mesh plane's counters over a `with` block."""
+
+    def __enter__(self):
+        from fabric_token_sdk_tpu_torch.utils import metrics as mx
+
+        self._reg = mx.REGISTRY
+        self._base = {k: self._reg.counter(k).value for k in SHARD_COUNTERS}
+        return self
+
+    def __exit__(self, *exc):
+        self.delta = {k: self._reg.counter(k).value - v for k, v in self._base.items()}
+        return False
